@@ -19,15 +19,20 @@ them, and prints no result.  It
    byte for byte with a numpy shadow heap after each;
 4. holds every kernel against its plain torch version on the card
    (``torch.equal`` on clones of the arena);
-5. prints the kernels' launch counts from step 3 and their times,
-   bounds and yardsticks as one JSON line, then the host-side µs/op;
+5. times the kernels warm and cold beside their bounds and yardsticks,
+   the blocking and coalesced µs/op, and where a blocking op's host
+   time goes (a split of each op, PyTorch's per-call costs and a
+   cProfile), and prints the kernels' launch counts from step 3 with
+   their times as one JSON line;
 6. prints ``{"ok": true, "device": {...}}`` as its last line.
 """
 
 from __future__ import annotations
 
+import cProfile
 import json
 import pathlib
+import pstats
 import subprocess
 import sys
 import time
@@ -255,7 +260,7 @@ def run_phases(ctx, gw, gt, rng, *, sweep, epoch_ops: int, epoch_bytes: int,
 
 def tables(rng, n_rows: int, pool_bytes: int, *, epoch_ops: int,
            epoch_bytes: int, overlap_ops: int, overlap_bytes: int,
-           block: int):
+           mixed_max: int, block: int, mb: int = 1 << 20):
     """Descriptor tables at the main path's shapes, built by the same
     host packer the engine uses."""
     from repro_torch.kernels import segmented_copy as sc
@@ -273,6 +278,20 @@ def tables(rng, n_rows: int, pool_bytes: int, *, epoch_ops: int,
                                          [4096] * overlap_ops,
                                          [overlap_bytes] * overlap_ops,
                                          pays([overlap_bytes] * overlap_ops))
+    # the mixed-size epoch's geometry (phase D): sizes 8 B … mixed_max
+    # and 3 B more, offsets 0-16 B past the previous op on the same row
+    rows, offs, sizes = [], [], []
+    cursor = [12 * mb] * n_rows
+    size = 8
+    while size <= mixed_max:
+        for extra in (0, 3):
+            u = len(rows) % n_rows
+            rows.append(u)
+            offs.append(cursor[u] + int(rng.integers(0, 17)))
+            sizes.append(size + extra)
+            cursor[u] = offs[-1] + sizes[-1]
+        size *= 2
+    out["mixed"] = sc.pack_descriptors(rows, offs, sizes, pays(sizes))
     out["strided"] = sc.pack_descriptors([2], [20], [4], pays([4 * block]),
                                          strides=[4 * block], counts=[block])
     big = min(1 << 20, pool_bytes // 4)
@@ -283,18 +302,43 @@ def tables(rng, n_rows: int, pool_bytes: int, *, epoch_ops: int,
     return out
 
 
-def time_ms(fn, reps: int) -> float:
+HOLD_CYCLES = 200_000      # ~0.1 ms of spinning at the H100's clock
+
+
+def time_ms(fn, reps: int, flush=None) -> float:
+    """Mean device ms of ``fn`` (CUDA events).  Warm: ``reps`` calls
+    back to back between one pair of events.  Cold (``flush`` given):
+    ``flush()`` evicts the L2 before each call, and each call is timed
+    alone.  A spin kernel holds the stream first, long enough for the
+    host to queue the calls behind it, so the events time the device
+    and not the wrapper's host cost per call (tens of µs, more than a
+    small kernel takes).  A function that waits on the device itself
+    (the plain versions do) is timed with its host gaps."""
     import torch
     fn()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
+    if flush is None:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES * reps)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+    pairs = []
     for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
+        flush()
+        a.record()
         fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def kernel_checks(arena, tabs) -> dict:
@@ -304,10 +348,12 @@ def kernel_checks(arena, tabs) -> dict:
     import torch
     from repro_torch.kernels import segmented_copy as sc
     dev = arena.device
-    flat_arena = arena.view(-1)
     res = {}
 
-    def valid_index(desc_np, seg, P):
+    def lanes(desc_np, seg, P):
+        """Each valid lane's arena byte and flat byte, in queue order,
+        and for each distinct arena byte the lane that writes it last
+        (the only write an overlapping run needs: last writer wins)."""
         d = torch.from_numpy(desc_np.astype(np.int64)).to(dev)
         lane = torch.arange(seg, device=dev, dtype=torch.int64)[None, :]
         valid = lane < (d[:, sc.LEN] * d[:, sc.COUNT])[:, None]
@@ -315,10 +361,12 @@ def kernel_checks(arena, tabs) -> dict:
         dst = (d[:, sc.ROW][:, None] * P + d[:, sc.OFF][:, None]
                + (lane // safe) * d[:, sc.STRIDE][:, None] + lane % safe)
         src = d[:, sc.START][:, None] + lane
-        dst = dst[valid]
-        # bytes the function must touch: each distinct arena byte once
-        # (an overlapping run's earlier writes to a byte are not needed)
-        return dst, src[valid], int(torch.unique(dst).numel())
+        dst, src = dst[valid], src[valid]
+        uniq, inv = torch.unique(dst, return_inverse=True)
+        last = torch.full((uniq.numel(),), -1, dtype=torch.int64,
+                          device=dev).scatter_reduce_(
+            0, inv, torch.arange(dst.numel(), device=dev), reduce="amax")
+        return dst, src, last
 
     for name, (desc_np, flat_np, seg) in tabs.items():
         desc = torch.from_numpy(desc_np).to(dev)
@@ -345,39 +393,62 @@ def kernel_checks(arena, tabs) -> dict:
         del a_k, a_r, g_k, g_r
 
     # times at the main path's shapes: the coalesced epoch (disjoint
-    # scatter, gather) and the overlapping epoch (ordered scatter)
+    # scatter, gather; 16-byte aligned), the overlapping epoch (ordered
+    # scatter) and the mixed-size epoch (unaligned offsets and starts).
+    # Warm: back to back, the working set left in the L2.  Cold: the L2
+    # flushed before each call by writing a buffer 4x its size.
     P = arena.shape[1]
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size",
+                 50 << 20)
+    evict = torch.empty(4 * l2, dtype=torch.uint8, device=dev)
     timing = {}
     for kname, tab, ordered in (("scatter", "disjoint", False),
                                 ("scatter_ordered", "ordered", True),
-                                ("gather", "disjoint", None)):
+                                ("gather", "disjoint", None),
+                                ("scatter@mixed", "mixed", False),
+                                ("gather@mixed", "mixed", None)):
         r = res[tab]
         desc, flat, seg, desc_np = r["desc"], r["flat"], r["seg"], r["desc_np"]
-        dst, src, distinct = valid_index(desc_np, seg, P)
+        dst, src, last = lanes(desc_np, seg, P)
+        distinct = last.numel()
         work = arena.clone()
         reps = 20 if ordered is not True else 5
         if ordered is None:
-            ms = time_ms(lambda: sc.gather_cuda(work, desc, seg=seg), reps)
-            plain = time_ms(lambda: sc.gather_ref(work, desc, seg=seg), reps)
-            lib = time_ms(lambda: torch.take(work.view(-1), dst), reps)
+            def kern():
+                return sc.gather_cuda(work, desc, seg=seg)
+
+            def plain():
+                return sc.gather_ref(work, desc, seg=seg)
+
+            def lib():
+                return torch.take(work.view(-1), dst)
             nbytes = desc_np.nbytes + distinct + desc_np.shape[0] * seg
             err = r["gather_err"]
         else:
-            vals = flat[src]
-            ms = time_ms(lambda: sc.scatter_cuda(work, desc, flat, seg=seg,
-                                                 ordered=ordered), reps)
-            plain = time_ms(lambda: sc.scatter_ref(work, desc, flat, seg=seg,
-                                                   ordered=ordered), reps)
-            lib = time_ms(lambda: work.view(-1).index_put_((dst,), vals),
-                          reps)
+            ldst, lvals = dst[last], flat[src[last]]
+
+            def kern():
+                return sc.scatter_cuda(work, desc, flat, seg=seg,
+                                       ordered=ordered)
+
+            def plain():
+                return sc.scatter_ref(work, desc, flat, seg=seg,
+                                      ordered=ordered)
+
+            def lib():
+                return work.view(-1).index_put_((ldst,), lvals)
             nbytes = desc_np.nbytes + 2 * distinct
             err = r["scatter_err"]
-        timing[kname] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+        timing[kname] = {"ms": time_ms(kern, reps),
+                         "cold_ms": time_ms(kern, reps, flush=evict.zero_),
+                         "plain_ms": time_ms(plain, reps),
+                         "library_ms": time_ms(lib, reps),
                          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                          "max_abs_err": err, "bytes": nbytes,
                          "shape": f"kb={desc_np.shape[0]} seg={seg} "
                                   f"lanes={dst.numel()} distinct={distinct}"}
         del work
+    del evict
     return timing
 
 
@@ -420,6 +491,99 @@ def host_timings(ctx, gw, gt, rng, sweep, epoch_ops, epoch_bytes):
         epoch()
     out["coalesced_us_per_op"] = ((time.perf_counter() - t0) / reps
                                   / epoch_ops * 1e6)
+    return out
+
+
+def host_breakdown(ctx, g, sizes, reps: int = 200) -> dict:
+    """Where a blocking put and get spend their host time: each op split
+    into enqueue, the lane's flush (pack, stage, launch, event) and the
+    wait (for a get: wait, device→host copy and decode) at each size,
+    then the PyTorch calls a dispatch makes, each timed alone.  µs per
+    call on the host clock."""
+    import torch
+    import repro_torch.core as dart
+    from repro_torch.kernels import segmented_copy as sc
+    eng, dev = ctx.engine, ctx.device
+
+    def split(start, finish, n):
+        t = np.zeros(3)
+        for _ in range(n):
+            t0 = time.perf_counter()
+            h = start()
+            t1 = time.perf_counter()
+            eng.flush(h.poolid, h.row)
+            t2 = time.perf_counter()
+            finish(h)
+            t += (t1 - t0, t2 - t1, time.perf_counter() - t2)
+        return t / n * 1e6                       # enqueue, flush, wait
+
+    out = {"split": {}, "calls": {}}
+    for size in sizes:
+        n = reps if size < (1 << 18) else max(reps // 10, 1)
+        pay = np.zeros(size, np.uint8)
+        out["split"][("put", size)] = split(
+            lambda: dart.dart_put(ctx, g, pay), lambda h: h.wait(), n)
+        out["split"][("get", size)] = split(
+            lambda: dart.dart_get_nb(ctx, g, (size,), torch.uint8),
+            lambda h: h.value(), n)
+
+    pinned = torch.zeros(256, dtype=torch.uint8, pin_memory=True)
+    small = torch.zeros(64, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    done = torch.cuda.Event()
+    done.record(stream)
+    desc, _, seg = sc.pack_descriptors([0], [0], [1])
+    d_dev = torch.from_numpy(desc).to(dev)
+    f_dev = torch.zeros(1, dtype=torch.uint8, device=dev)
+    target = torch.zeros((1, 4096), dtype=torch.uint8, device=dev)
+
+    def guard():
+        with torch.cuda.device(dev):
+            pass
+
+    def event():
+        torch.cuda.Event().record(stream)
+
+    calls = {
+        "pack_descriptors (1 op)": lambda: sc.pack_descriptors([0], [0], [1]),
+        "pinned H2D 96 B non_blocking":
+            lambda: pinned[:96].to(dev, non_blocking=True),
+        "torch.cuda.current_stream": lambda: torch.cuda.current_stream(dev),
+        "torch.cuda.device guard": guard,
+        "torch.empty (4, 16) uint8": lambda: torch.empty(
+            (4, 16), dtype=torch.uint8, device=dev),
+        "scatter_cuda launch (1 B)": lambda: sc.scatter_cuda(
+            target, d_dev, f_dev, seg=seg, ordered=False),
+        "gather_cuda launch (1 B)": lambda: sc.gather_cuda(
+            target, d_dev, seg=seg),
+        "Event() + record": event,
+        "Event.synchronize (done)": done.synchronize,
+        "D2H 64 B": small.cpu,
+    }
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out["calls"][name] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+
+    # self time of each function over blocking 1 B put + get pairs
+    # (cProfile adds its own cost to every Python call it sees)
+    pay = np.zeros(1, np.uint8)
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(reps):
+        dart.dart_put_blocking(ctx, g, pay)
+        dart.dart_get_blocking(ctx, g, (1,), torch.uint8)
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    top = sorted(stats.items(), key=lambda kv: kv[1][2], reverse=True)
+    out["profile"] = [(f"{pathlib.Path(f).name}:{line}({fn})", nc / reps,
+                       tt / reps * 1e6)
+                      for (f, line, fn), (_, nc, tt, _, _) in top[:14]]
+    out["profile_total"] = sum(v[2] for v in stats.values()) / reps * 1e6
     return out
 
 
@@ -481,22 +645,34 @@ def main() -> int:
     print(f"ref launches on CUDA arenas: {launches['ref_on_cuda']}")
     check(launches["ref_on_cuda"] == 0, "a plain version ran on a CUDA arena")
 
-    tabs = tables(rng, N_UNITS, POOL_BYTES, block=1024, **shapes)
+    tabs = tables(rng, N_UNITS, POOL_BYTES, block=1024, mixed_max=1 << 20,
+                  **shapes)
     timing = kernel_checks(ctx.state[0], tabs)
     host = host_timings(ctx, gw, gt, rng, SWEEP, shapes["epoch_ops"],
                         shapes["epoch_bytes"])
+    parts = host_breakdown(ctx, gw[N_UNITS - 1], (SWEEP[0], SWEEP[-1]))
 
     for k, t in timing.items():
-        print(f"time {k} [{t['shape']}]: kernel {t['ms']:.6f} ms, plain "
-              f"{t['plain_ms']:.6f} ms, library {t['library_ms']:.6f} ms, "
-              f"bound {t['bound_ms']:.6f} ms ({t['bytes']} B at 3.35 TB/s) "
-              f"on {card}")
+        print(f"time {k} [{t['shape']}]: kernel {t['ms']:.6f} ms warm, "
+              f"{t['cold_ms']:.6f} ms cold, plain {t['plain_ms']:.6f} ms, "
+              f"library {t['library_ms']:.6f} ms, bound {t['bound_ms']:.6f}"
+              f" ms ({t['bytes']} B at 3.35 TB/s) on {card}")
     for size in SWEEP:
         print(f"blocking {size} B: put {host['put_us'][size]:.2f} us/op, "
               f"get {host['get_us'][size]:.2f} us/op on {card}")
     print(f"coalesced epoch {shapes['epoch_ops']} x "
           f"{shapes['epoch_bytes']} B: {host['coalesced_us_per_op']:.3f} "
           f"us/op on {card}")
+    for key, (enq, fl, wt) in parts["split"].items():
+        print(f"host {key[0]} {key[1]} B: enqueue {enq:.2f} us, flush "
+              f"{fl:.2f} us, wait {wt:.2f} us, total {enq + fl + wt:.2f} us"
+              f" on {card}")
+    for name, us in parts["calls"].items():
+        print(f"host call {name}: {us:.2f} us on {card}")
+    print(f"host profile of a blocking 1 B put + get, self time per pair "
+          f"(total {parts['profile_total']:.2f} us under cProfile) on {card}:")
+    for name, calls, us in parts["profile"]:
+        print(f"  {us:9.2f} us  {calls:5.1f} calls  {name}")
     dart.dart_exit(ctx)
 
     kernels = [{"name": f"segmented_{k}", "route": "cuda", "source": SOURCE,

@@ -395,24 +395,32 @@ class _PinnedStaging:
         self._in_use: Optional[torch.cuda.Event] = None
 
     def to_device(self, device: torch.device, desc: np.ndarray,
-                  flat: Optional[np.ndarray]
+                  payloads: Optional[Sequence[np.ndarray]]
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Copy ``desc`` and the payloads over.  Each payload is written
+        straight into the pinned buffer at its ``START`` (payloads pack
+        densely in run order, as :func:`pack_descriptors` lays them
+        out), so the flat payload is exactly the bytes the kernel reads:
+        no bucket-sized zero tail is built or copied."""
         nd = desc.nbytes
         fo = (nd + 255) // 256 * 256            # flat starts aligned
-        need = fo + (0 if flat is None else flat.nbytes)
+        used = 0 if payloads is None else sum(int(p.size) for p in payloads)
         if self._in_use is not None:
             self._in_use.synchronize()
-        if self._buf is None or self._buf.numel() < need:
-            self._buf = torch.empty(_sc.bucket_pow2(need),
+        if self._buf is None or self._buf.numel() < fo + used:
+            self._buf = torch.empty(_sc.bucket_pow2(fo + used),
                                     dtype=torch.uint8, pin_memory=True)
         host = self._buf.numpy()
         host[:nd] = desc.reshape(-1).view(np.uint8)
         d = (self._buf[:nd].to(device, non_blocking=True)
              .view(torch.int32).reshape(desc.shape))
         f = None
-        if flat is not None:
-            host[fo:fo + flat.nbytes] = flat
-            f = self._buf[fo:fo + flat.nbytes].to(device, non_blocking=True)
+        if payloads is not None:
+            at = fo
+            for p in payloads:
+                host[at:at + p.size] = p
+                at += p.size
+            f = self._buf[fo:fo + used].to(device, non_blocking=True)
         return d, f
 
     def guard(self, event: torch.cuda.Event) -> None:
@@ -601,13 +609,15 @@ class CommEngine:
             return len(dropped)
 
     def _stage(self, arena: torch.Tensor, desc: np.ndarray,
-               flat: Optional[np.ndarray]
+               payloads: Optional[Sequence[np.ndarray]] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """The run's two host→device copies (none on a CPU arena)."""
+        """The run's descriptor table and its payloads packed densely in
+        run order (the flat buffer's used bytes): two host→device copies
+        on a CUDA arena, none on a CPU arena."""
         if arena.is_cuda:
-            return self._staging.to_device(arena.device, desc, flat)
-        return (torch.from_numpy(desc),
-                None if flat is None else torch.from_numpy(flat))
+            return self._staging.to_device(arena.device, desc, payloads)
+        return (torch.from_numpy(desc), None if payloads is None
+                else torch.from_numpy(np.concatenate(payloads)))
 
     def _completion(self, arena: torch.Tensor
                     ) -> Tuple[torch.cuda.Event, ...]:
@@ -632,23 +642,18 @@ class CommEngine:
         self.dispatch_count += 1
         if len(run) > 1:
             self.ops_coalesced += len(run)
-        desc, flat, seg = _sc.pack_descriptors(
+        desc, _, seg = _sc.pack_descriptors(
             [op.row for op in run], [op.off for op in run],
             [int(op.payload.size) // op.count for op in run],
-            [op.payload for op in run],
             strides=[op.stride for op in run],
             counts=[op.count for op in run])
+        kb = desc.shape[0]
         impl = _sc.resolve_impl(self.impl, arena)
         fn, hit = _sc.scatter_plan(
-            tuple(arena.shape), desc.shape[0], seg, flat.shape[0],
+            tuple(arena.shape), kb, seg, _sc.flat_bucket(kb, seg),
             ordered=not disjoint, impl=impl)
         self._note_plan(hit)
-        # the kernels read only the packed payloads, never the bucket's
-        # zero tail: stage just those bytes
-        used = max(1, int(np.max(desc[:, _sc.START].astype(np.int64)
-                                 + desc[:, _sc.LEN].astype(np.int64)
-                                 * desc[:, _sc.COUNT])))
-        d, f = self._stage(arena, desc, flat[:used])
+        d, f = self._stage(arena, desc, [op.payload for op in run])
         fn(arena, d, f)
         events = self._completion(arena)
         for op in run:

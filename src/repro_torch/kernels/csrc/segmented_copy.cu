@@ -23,8 +23,13 @@
 // What the design does about it:
 //   * every thread moves 16 lanes; where the 16 lanes are one aligned
 //     run of one segment on both sides it moves them as one 16-byte
-//     vector (the common case: 128-byte-aligned allocations, dense
-//     payloads), otherwise byte by byte;
+//     vector (128-byte-aligned allocations, payloads of multiples of
+//     16 bytes), otherwise byte by byte.  A run whose offsets or payload
+//     sizes are not multiples of 16 takes the byte loop for nearly every
+//     lane and runs far from the bound; realigning each segment (load
+//     aligned words and funnel-shift them, or stage the source through
+//     shared memory, so that full destination chunks are vector stores)
+//     is the next step;
 //   * the disjoint scatter and the gather are one parallel grid over
 //     (lane chunk, descriptor), so a coalesced run of many puts fills
 //     the card in one launch;

@@ -117,6 +117,14 @@ def pack_descriptors(rows: Sequence[int], offs: Sequence[int],
     return desc, flat, seg
 
 
+def flat_bucket(kb: int, seg: int) -> int:
+    """Length of the flat buffer :func:`pack_descriptors` builds for
+    ``kb`` descriptors of segment bucket ``seg`` — the ``flat_len`` of
+    the scatter plan key, for callers that stage the payloads
+    themselves."""
+    return max(kb * seg + seg, FLAT_FLOOR)
+
+
 def check_flat_addressable(arena_shape: Tuple[int, int]) -> None:
     """The reference's kernels address the arena as a flat int32 byte
     index (``row * pool_bytes + off + lane``), so arenas at or beyond

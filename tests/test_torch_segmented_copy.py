@@ -40,6 +40,12 @@ def test_pack_descriptors_identical(name):
     np.testing.assert_array_equal(t[1], r[1])
     assert t[2] == r[2] and t[0].dtype == np.int32
     assert tsc.strided_buckets(t[0], t[2]) == rsc.strided_buckets(r[0], r[2])
+    # the engine stages payloads itself: densely in run order, in a flat
+    # buffer whose plan-key length is the reference's bucketed one
+    assert tsc.flat_bucket(t[0].shape[0], t[2]) == r[1].shape[0]
+    used = np.concatenate(pays)
+    np.testing.assert_array_equal(r[1][:used.size], used)
+    assert not r[1][used.size:].any()
     g = tsc.pack_descriptors(rows, offs, lens, strides=strides,
                              counts=counts)
     assert g[1] is None
@@ -63,6 +69,9 @@ def test_pack_descriptors_property(ops):
     np.testing.assert_array_equal(t[0], r[0])
     np.testing.assert_array_equal(t[1], r[1])
     assert t[2] == r[2]
+    assert tsc.flat_bucket(t[0].shape[0], t[2]) == r[1].shape[0]
+    used = np.concatenate(pays)
+    np.testing.assert_array_equal(r[1][:used.size], used)
 
 
 @pytest.mark.parametrize("n,floor", [(0, 1), (1, 1), (5, 1), (8, 1),
