@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the torch port's one-sided put/get path on one CUDA card.
+"""Drive the torch port's one-sided put/get path, its reduction plane
+and its host-plane collectives on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,23 +8,31 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc; exits non-zero without
 them, and prints no result.  It
 
 1. prints the card's name and power limit, builds the segmented-copy
-   kernels from ``src/repro_torch/kernels/csrc`` and prints the build
-   time and ``-Xptxas -v``;
+   and read-modify-write kernels from ``src/repro_torch/kernels/csrc``
+   and prints the build time and ``-Xptxas -v``;
 2. brings the runtime up through ``repro_torch.core`` at the scale of
    the reference's paper benchmark: 16 units, a 48 MiB per-unit WORLD
    pool and a 48 MiB per-member DART_TEAM_ALL pool (two 768 MiB arenas
    on the card);
-3. runs the traffic phases (blocking sweep 1 B … 2 MiB, coalesced
-   epoch, overlapping epoch, mixed-size epoch, per-target flush,
-   strided put/get, non-blocking get run) and compares both arenas
-   byte for byte with a numpy shadow heap after each;
+3. runs three paths, each with the kernels' launch counts set to 0
+   just before it and read just after, and compares both arenas byte
+   for byte with a numpy shadow heap after every phase:
+   - put/get: blocking sweep 1 B … 2 MiB, coalesced epoch, overlapping
+     epoch, mixed-size epoch, per-target flush, strided put/get,
+     non-blocking get run;
+   - the reduction plane: blocking f32 accumulate sweep 4 B … 2 MiB, a
+     coalesced accumulate epoch, an overlapping one, every op x
+     {int32, float32, bfloat16} with its run splits, a fused
+     get_accumulate run, a strided column accumulate;
+   - collectives: bcast, gather, scatter, allreduce and reduce;
 4. holds every kernel against its plain torch version on the card
-   (``torch.equal`` on clones of the arena);
+   (``torch.equal`` on clones of the arena, and for the accumulate
+   kernels on edge-value tables of every op and element type);
 5. times the kernels warm and cold beside their bounds and yardsticks,
-   the blocking and coalesced µs/op, and where a blocking op's host
-   time goes (a split of each op, PyTorch's per-call costs and a
-   cProfile), and prints the kernels' launch counts from step 3 with
-   their times as one JSON line;
+   the blocking and coalesced µs/op of puts, gets and accumulates, and
+   where a blocking op's host time goes (a split of each op, PyTorch's
+   per-call costs and a cProfile), and prints the kernels' launch
+   counts from step 3 with their times as one JSON line;
 6. prints ``{"ok": true, "device": {...}}`` as its last line.
 """
 
@@ -49,9 +58,14 @@ WORLD_ALLOC = 40 << 20
 SWEEP = [1 << e for e in range(0, 22, 3)]       # 1 B … 2 MiB
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM
 SOURCE = "src/repro_torch/kernels/csrc/segmented_copy.cu"
+ACC_SWEEP = [4 << (3 * e) for e in range(7)] + [2 << 20]   # 4 B … 2 MiB
 REPLACES = {"scatter": "src/repro/kernels/segmented_copy.py:482",
             "scatter_ordered": "src/repro/kernels/segmented_copy.py:482",
-            "gather": "src/repro/kernels/segmented_copy.py:505"}
+            "gather": "src/repro/kernels/segmented_copy.py:505",
+            "accumulate": "src/repro/kernels/segmented_copy.py:529",
+            "accumulate_ordered": "src/repro/kernels/segmented_copy.py:529",
+            "get_accumulate": "src/repro/kernels/segmented_copy.py:529"}
+KERNELS = tuple(REPLACES)
 
 
 class SmokeFailure(AssertionError):
@@ -90,6 +104,29 @@ class Shadow:
         pid, row, off = deref(self.ctx.heap, self.ctx.teams_by_slot, gptr)
         return self.pools[pid][row, off:off + nbytes].copy()
 
+    def accumulate(self, gptr, vals: np.ndarray, dtype: str, op: str,
+                   stride: int = 0, count: int = 1) -> np.ndarray:
+        """Apply one accumulate in program order; returns the pre-update
+        bytes (the get_accumulate value)."""
+        from repro_torch.core import deref
+        pid, row, off = deref(self.ctx.heap, self.ctx.teams_by_slot, gptr)
+        n = vals.size // count
+        nb = n * vals.itemsize
+        old = []
+        for j in range(count):
+            at = off + j * stride
+            cell = self.pools[pid][row, at:at + nb]
+            old.append(cell.copy())
+            cur = cell.view(vals.dtype)
+            cell[:] = np_combine(cur, vals[j * n:(j + 1) * n], op,
+                                 dtype).view(np.uint8)
+        return np.concatenate(old)
+
+    def pool_rows(self, gptr) -> np.ndarray:
+        from repro_torch.core import deref
+        pid, _, _ = deref(self.ctx.heap, self.ctx.teams_by_slot, gptr)
+        return self.pools[pid]
+
     def compare(self, phase: str) -> None:
         for pid, arena in self.ctx.state.items():
             got = arena.cpu().numpy()
@@ -104,6 +141,52 @@ class Shadow:
 
 def as_bytes(value: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(value).reshape(-1).view(np.uint8)
+
+
+# ----------------------------------------------------------------------------
+# the reduction plane's oracle: numpy IEEE arithmetic, bfloat16 as its bits
+# (uint16) computed in float32 and rounded to nearest even
+# ----------------------------------------------------------------------------
+
+def bf16_to_f32(bits: np.ndarray) -> np.ndarray:
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def f32_to_bf16(f: np.ndarray) -> np.ndarray:
+    u = np.ascontiguousarray(f, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x7FFF) + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def np_combine(a: np.ndarray, b: np.ndarray, op: str, dtype: str):
+    """The sequential oracle's ``a op b`` (no NaN or signed zeros in the
+    data it sees; int32 wraps)."""
+    if dtype == "bfloat16":
+        return f32_to_bf16(np_combine(bf16_to_f32(a), bf16_to_f32(b), op,
+                                      "float32"))
+    with np.errstate(over="ignore"):
+        if op == "sum":
+            return a + b
+        if op == "prod":
+            return a * b
+    return np.minimum(a, b) if op == "min" else np.maximum(a, b)
+
+
+def rand_vals(rng, dtype: str, n: int) -> np.ndarray:
+    """Random elements: int32 over its whole range; floats of magnitude
+    in [1, 2) with random signs and all mantissa bits (bf16 as bits)."""
+    if dtype == "int32":
+        return rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)
+    f = (rng.uniform(1.0, 2.0, n) * rng.choice([-1.0, 1.0], n)
+         ).astype(np.float32)
+    return f if dtype == "float32" else f32_to_bf16(f)
+
+
+def as_payload(vals: np.ndarray, dtype: str):
+    """What a caller hands the port: numpy, or a torch bf16 tensor."""
+    import torch
+    if dtype == "bfloat16":
+        return torch.from_numpy(vals.copy()).view(torch.bfloat16)
+    return vals
 
 
 # ----------------------------------------------------------------------------
@@ -252,6 +335,183 @@ def run_phases(ctx, gw, gt, rng, *, sweep, epoch_ops: int, epoch_bytes: int,
         check(np.array_equal(h.value().numpy(), sh.read(g, epoch_bytes)),
               "get_nb value differs from the shadow heap")
     sh.compare("get-nb-run")
+
+
+ACC_DTYPES = ("int32", "float32", "bfloat16")
+OPS = ("sum", "prod", "min", "max")
+
+
+def run_acc_phases(ctx, gw, gt, rng, *, sweep, epoch_ops: int,
+                   epoch_bytes: int, overlap_ops: int, overlap_bytes: int,
+                   block: int, mb: int = 1 << 20) -> None:
+    """The reduction plane's phases, each checked against the shadow
+    heap, which applies every accumulate in program order.  Regions:
+    WORLD 28-33 ``mb`` and the strided matrix of phase F (24 ``mb``);
+    DART_TEAM_ALL 2-5 ``mb``."""
+    import torch
+    import repro_torch.core as dart
+    eng = ctx.engine
+    sh = Shadow(ctx)
+    for pid, arena in ctx.state.items():          # start from the device
+        sh.pools[pid] = arena.cpu().numpy().copy()
+    n = ctx.n_units
+
+    # -- H: blocking f32 sum sweep, 4 B ... 2 MiB, to several units ---------
+    targets = sorted({0, n // 3, n - 1})
+    for size in sweep:
+        for u in targets:
+            g = gw[u] + 28 * mb
+            vals = rand_vals(rng, "float32", size // 4)
+            dart.dart_accumulate_blocking(ctx, g, vals, "sum")
+            sh.accumulate(g, vals, "float32", "sum")
+            got = dart.dart_get_blocking(ctx, g, (size // 4,), torch.float32)
+            check(np.array_equal(got.numpy().view(np.uint8),
+                                 sh.read(g, size)),
+                  f"blocking accumulate of {size} B on unit {u} differs")
+    sh.compare("acc-blocking-sweep")
+
+    # -- I: coalesced disjoint f32 sum epoch, one dispatch (parallel) -------
+    d0 = eng.dispatch_count
+    hs = []
+    for i in range(epoch_ops):
+        g = gt.setunit(i % n) + 2 * mb + (i // n) * epoch_bytes
+        vals = rand_vals(rng, "float32", epoch_bytes // 4)
+        hs.append(dart.dart_accumulate(ctx, g, vals, "sum"))
+        sh.accumulate(g, vals, "float32", "sum")
+    dart.dart_flush(ctx)
+    dart.dart_waitall(hs)
+    check(eng.dispatch_count - d0 == 1,
+          f"accumulate epoch took {eng.dispatch_count - d0} dispatches")
+    sh.compare("acc-coalesced-epoch")
+
+    # -- J: overlapping f32 sum epoch to one offset (ordered), random
+    #       non-integer floats so that another order changes bits ---------
+    g = gw[3 % n] + 31 * mb
+    base = rand_vals(rng, "float32", overlap_bytes // 4)
+    dart.dart_put_blocking(ctx, g, base)
+    sh.put(g, as_bytes(base))
+    d0 = eng.dispatch_count
+    hs = []
+    for i in range(overlap_ops):
+        vals = rand_vals(rng, "float32", overlap_bytes // 4)
+        hs.append(dart.dart_accumulate(ctx, g, vals, "sum"))
+        sh.accumulate(g, vals, "float32", "sum")
+    dart.dart_waitall(hs)
+    check(eng.dispatch_count - d0 == 1,
+          f"overlapping accumulate epoch took {eng.dispatch_count - d0}")
+    sh.compare("acc-overlapping-epoch")
+
+    # -- K: every op x {int32, float32, bfloat16}, overlapping within each
+    #       (op, dtype) group: one ordered dispatch per group -------------
+    d0 = eng.dispatch_count
+    hs = []
+    for di, dt in enumerate(ACC_DTYPES):
+        for op in OPS:
+            for j in range(3):
+                u = (di + 1) % n
+                g = gw[u] + 32 * mb + di * 8192 + 256 * j
+                vals = rand_vals(rng, dt, 1024 // (2 if dt == "bfloat16"
+                                                   else 4))
+                hs.append(dart.dart_accumulate(ctx, g, as_payload(vals, dt),
+                                               op))
+                sh.accumulate(g, vals, dt, op)
+    dart.dart_waitall(hs)
+    groups = len(ACC_DTYPES) * len(OPS)
+    check(eng.dispatch_count - d0 == groups,
+          f"mixed op/dtype epoch took {eng.dispatch_count - d0} dispatches,"
+          f" want {groups}")
+    sh.compare("acc-mixed-op-dtype")
+
+    # -- L: a run of get_accumulates in one fused dispatch ------------------
+    d0 = eng.dispatch_count
+    hs, want = [], []
+    for i in range(epoch_ops):
+        g = gt.setunit(i % n) + 4 * mb + (i // n) * epoch_bytes
+        vals = rand_vals(rng, "float32", epoch_bytes // 4)
+        hs.append(eng.get_accumulate(ctx.heap, ctx.teams_by_slot, g, vals,
+                                     "sum"))
+        want.append(sh.accumulate(g, vals, "float32", "sum"))
+    dart.dart_flush(ctx)
+    check(eng.dispatch_count - d0 == 1,
+          f"get_accumulate run took {eng.dispatch_count - d0} dispatches")
+    for h, w in zip(hs, want):
+        check(np.array_equal(h.value().numpy().view(np.uint8), w),
+              "get_accumulate value differs from the shadow heap")
+    sh.compare("get-accumulate-run")
+
+    # -- M: strided column accumulate + get_accumulate (len 4, stride
+    #       4*block, count block) on phase F's matrix ----------------------
+    base = gw[2 % n] + 24 * mb
+    for c, op in ((3, "sum"), (11 % block, "max")):
+        col = rand_vals(rng, "float32", block)
+        kw = dict(stride=4 * block, count=block)
+        dart.dart_accumulate_blocking(ctx, base + 4 * c, col, op, **kw)
+        sh.accumulate(base + 4 * c, col, "float32", op, **kw)
+    col = rand_vals(rng, "float32", block)
+    old, _ = dart.dart_get_accumulate(ctx, base + 4 * 5, col, "prod",
+                                      stride=4 * block, count=block)
+    w = sh.accumulate(base + 4 * 5, col, "float32", "prod",
+                      stride=4 * block, count=block)
+    check(np.array_equal(old.numpy().view(np.uint8), w),
+          "strided get_accumulate value differs")
+    sh.compare("acc-strided")
+
+
+def run_coll_phases(ctx, gt, rng, *, nbytes: int, mb: int = 1 << 20) -> int:
+    """Host-plane collectives on the DART_TEAM_ALL pool (8-14 ``mb``),
+    each checked against the shadow heap; returns how many ran (each
+    counts one dispatch of its own)."""
+    import torch
+    import repro_torch.core as dart
+    sh = Shadow(ctx)
+    for pid, arena in ctx.state.items():
+        sh.pools[pid] = arena.cpu().numpy().copy()
+    rows = sh.pool_rows(gt)
+    n = ctx.n_units
+    count = 0
+
+    root = 5 % n
+    g = gt + 8 * mb
+    pay = rng.integers(0, 256, nbytes, dtype=np.uint8)
+    dart.dart_put_blocking(ctx, g.setunit(root), pay)
+    dart.dart_bcast(ctx, g.setunit(root), nbytes).wait()
+    rows[:, g.addr:g.addr + nbytes] = pay
+    out, _ = dart.dart_gather(ctx, g, nbytes)
+    count += 2
+    check(np.array_equal(out.numpy(), rows[:, g.addr:g.addr + nbytes]),
+          "dart_gather after dart_bcast differs")
+    sh.compare("coll-bcast-gather")
+
+    g = gt + 10 * mb
+    vals = rng.integers(0, 256, (n, nbytes // 16), dtype=np.uint8)
+    dart.dart_scatter(ctx, g, vals).wait()
+    rows[:, g.addr:g.addr + vals.shape[1]] = vals
+    count += 1
+    sh.compare("coll-scatter")
+
+    for k, (goff, root_unit) in enumerate(((12 * mb, None), (13 * mb, 3))):
+        g = gt + goff
+        data = rand_vals(rng, "float32", n * (nbytes // 4)).reshape(n, -1)
+        dart.dart_scatter_typed(ctx, g, data).wait()
+        red = np.zeros(data.shape[1], np.float32)
+        for r in range(n):
+            red = red + data[r]                   # the fold from +0, in order
+        if root_unit is None:
+            got = dart.dart_allreduce(ctx, g, (data.shape[1],),
+                                      torch.float32, "sum")
+            rows[:, g.addr:g.addr + nbytes] = red.view(np.uint8)
+        else:
+            got = dart.dart_reduce(ctx, g, (data.shape[1],), torch.float32,
+                                   "sum", root=root_unit)
+            rows[:, g.addr:g.addr + nbytes] = data.view(np.uint8)
+            rows[root_unit, g.addr:g.addr + nbytes] = red.view(np.uint8)
+        count += 2
+        check(np.array_equal(got.numpy(), red),
+              f"{'allreduce' if root_unit is None else 'reduce'} result "
+              "differs from the sequential float32 sum")
+    dart.dart_barrier(ctx)
+    sh.compare("coll-allreduce-reduce")
+    return count
 
 
 # ----------------------------------------------------------------------------
@@ -452,7 +712,184 @@ def kernel_checks(arena, tabs) -> dict:
     return timing
 
 
-def host_timings(ctx, gw, gt, rng, sweep, epoch_ops, epoch_bytes):
+def acc_tables(rng, n_rows: int, *, epoch_ops: int, epoch_bytes: int,
+               overlap_ops: int, overlap_bytes: int, block: int,
+               mb: int = 1 << 20):
+    """The accumulate runs of the main path as the engine stages them
+    (dense payloads, the (kb, 7) table): ``name -> (desc, flat, seg,
+    fetch, ordered)``, float32 sum."""
+    from repro_torch.kernels import segmented_copy as sc
+
+    def flat(nbytes):
+        return as_bytes(rand_vals(rng, "float32", nbytes // 4))
+
+    rows = [i % n_rows for i in range(epoch_ops)]
+    offs = [2 * mb + (i // n_rows) * epoch_bytes for i in range(epoch_ops)]
+    desc, seg = sc.pack_acc_table(rows, offs, [epoch_bytes] * epoch_ops,
+                                  "sum")
+    pay = flat(epoch_bytes * epoch_ops)
+    out = {"disjoint": (desc, pay, seg, False, False),
+           "fetch": (desc, pay, seg, True, False)}
+    desc, seg = sc.pack_acc_table([3 % n_rows] * overlap_ops,
+                                  [31 * mb] * overlap_ops,
+                                  [overlap_bytes] * overlap_ops, "sum")
+    out["ordered"] = (desc, flat(overlap_bytes * overlap_ops), seg, False,
+                      True)
+    desc, seg = sc.pack_acc_table([2 % n_rows], [24 * mb + 12], [4], "sum",
+                                  strides=[4 * block], counts=[block])
+    out["strided"] = (desc, flat(4 * block), seg, False, False)
+    return out
+
+
+def special_case(rng, dtype: str, op: str, kind: str, shape):
+    """A small accumulate run whose arena and payloads mix in NaN, ±0,
+    ±inf, denormals and the largest finite values (floats), or the
+    type's min, max, 0 and -1 (integers, so sums and products wrap):
+    ``(arena, desc, flat, seg, fetch, ordered)``."""
+    import torch
+    from repro_torch.kernels import segmented_copy as sc
+    tdt = getattr(torch, dtype)
+    isz = tdt.itemsize
+
+    def elems(n):
+        if tdt.is_floating_point:
+            info = torch.finfo(tdt)
+            v = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+            sp = torch.tensor([0.0, -0.0, float("inf"), float("-inf"),
+                               float("nan"), info.tiny / 4, -info.tiny / 2,
+                               info.tiny, info.max, -info.max])
+            pick = torch.from_numpy(rng.random(n) < 0.4)
+            v[pick] = sp[torch.from_numpy(
+                rng.integers(0, len(sp), int(pick.sum())))]
+            return v.to(tdt).view(torch.uint8)
+        info = torch.iinfo(tdt)
+        v = rng.integers(info.min, info.max, n, endpoint=True)
+        ext = np.array([info.min, info.max, 0, -1 if info.min < 0 else 1])
+        pick = rng.random(n) < 0.3
+        v[pick] = rng.choice(ext, int(pick.sum()))
+        return torch.from_numpy(v.astype(np.int64)).view(torch.uint8).reshape(
+            n, 8)[:, :isz].reshape(-1)
+
+    k = int(rng.integers(3, 12))
+    rows, offs, lens = [], [], []
+    cursor = [0] * shape[0]
+    for j in range(k):
+        ne = int(rng.integers(1, 300))
+        if kind == "ordered":
+            rows.append(1)
+            offs.append(int(rng.integers(0, 64)) * isz)
+        else:
+            r = j % shape[0]
+            rows.append(r)
+            offs.append(cursor[r] + int(rng.integers(0, 5)) * isz)
+            cursor[r] = offs[-1] + ne * isz
+        lens.append(ne * isz)
+    desc, seg = sc.pack_acc_table(rows, offs, lens, op)
+    flat = torch.cat([elems(n // isz) for n in lens])
+    arena = elems(shape[0] * shape[1] // isz).reshape(shape)
+    return arena, desc, flat, seg, kind == "fetch", kind == "ordered"
+
+
+def acc_kernel_checks(arena, tabs, rng) -> dict:
+    """Each accumulate kernel against its plain version on the card:
+    the main path's tables on clones of ``arena``, then edge-value
+    tables for every op x element type; times at the main path's
+    shapes."""
+    import torch
+    from repro_torch.kernels import segmented_copy as sc
+    dev = arena.device
+
+    def both(a, desc, flat, seg, op, dtype, fetch, ordered):
+        d = torch.from_numpy(desc).to(dev)
+        f = (flat if isinstance(flat, torch.Tensor)
+             else torch.from_numpy(flat)).to(dev)
+        a_k, a_r = a.clone(), a.clone()
+        k = sc.accumulate_cuda(a_k, d, f, seg=seg, op=op, dtype=dtype,
+                               fetch=fetch, ordered=ordered)
+        r = sc.accumulate_ref(a_r, d, f, seg=seg, op=op, dtype=dtype,
+                              fetch=fetch, ordered=ordered)
+        torch.cuda.synchronize()
+        err = int((a_k.view(-1).int() - a_r.view(-1).int()).abs().max())
+        same = torch.equal(a_k, a_r)
+        if fetch:
+            same = same and torch.equal(k[1], r[1])
+            err = max(err, int((k[1].int() - r[1].int()).abs().max()))
+        return same, err, d, f
+
+    res = {}
+    for name, (desc, flat, seg, fetch, ordered) in tabs.items():
+        same, err, d, f = both(arena, desc, flat, seg, "sum", "float32",
+                               fetch, ordered)
+        check(same, f"accumulate table {name}: kernel differs from plain")
+        print(f"kernel check acc {name}: kb={desc.shape[0]} seg={seg} "
+              f"fetch={fetch} ordered={ordered}: kernel == plain")
+        res[name] = (d, f, seg, err, desc)
+
+    n_special = 0
+    for dtype in sc.ACC_DTYPES:
+        for op in OPS:
+            for kind in ("disjoint", "ordered", "fetch"):
+                a, desc, flat, seg, fetch, ordered = special_case(
+                    rng, dtype, op, kind, (4, 1 << 16))
+                same, err, _, _ = both(a.to(dev), desc, flat, seg, op, dtype,
+                                       fetch, ordered)
+                check(same, f"edge-value table {dtype} {op} {kind}: kernel "
+                      f"differs from plain (max byte diff {err})")
+                n_special += 1
+    print(f"kernel check acc edge values: {n_special} tables (NaN, ±0, "
+          f"±inf, denormals, overflow; every op x {len(sc.ACC_DTYPES)} "
+          "element types) kernel == plain")
+
+    P = arena.shape[1]
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size",
+                 50 << 20)
+    evict = torch.empty(4 * l2, dtype=torch.uint8, device=dev)
+    timing = {}
+    for kname, tab in (("accumulate", "disjoint"),
+                       ("accumulate_ordered", "ordered"),
+                       ("get_accumulate", "fetch"),
+                       ("accumulate@strided", "strided")):
+        d, f, seg, err, desc = res[tab]
+        fetch, ordered = tabs[tab][3], tabs[tab][4]
+        work = arena.clone()
+        kw = dict(seg=seg, op="sum", dtype="float32", fetch=fetch,
+                  ordered=ordered)
+        dd = torch.from_numpy(desc.astype(np.int64)).to(dev)
+        lane = torch.arange(0, seg, 4, device=dev, dtype=torch.int64)[None]
+        valid = lane < (dd[:, sc.LEN] * dd[:, sc.COUNT])[:, None]
+        safe = dd[:, sc.LEN].clamp(min=1)[:, None]
+        dst = (dd[:, sc.ROW][:, None] * P + dd[:, sc.OFF][:, None]
+               + (lane // safe) * dd[:, sc.STRIDE][:, None] + lane % safe)
+        elems = (dst[valid] // 4)
+        pay_b = int(valid.sum()) * 4
+        distinct = int(torch.unique(elems).numel()) * 4
+        nbytes = desc.nbytes + pay_b + 2 * distinct + (
+            desc.shape[0] * seg if fetch else 0)
+        lib_ms = None
+        if not (fetch or ordered):
+            vals = f.view(torch.float32)[
+                ((dd[:, sc.START][:, None] + lane)[valid]) // 4]
+            cells = work.view(-1).view(torch.float32)
+            lib_ms = time_ms(lambda: cells.index_add_(0, elems, vals), 20)
+        reps = 5 if ordered else 20
+        timing[kname] = {
+            "ms": time_ms(lambda: sc.accumulate_cuda(work, d, f, **kw), reps),
+            "cold_ms": time_ms(lambda: sc.accumulate_cuda(work, d, f, **kw),
+                               reps, flush=evict.zero_),
+            "plain_ms": time_ms(lambda: sc.accumulate_ref(work, d, f, **kw),
+                                reps),
+            "library_ms": lib_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "max_abs_err": err, "bytes": nbytes,
+            "shape": f"kb={desc.shape[0]} seg={seg} "
+                     f"payload={pay_b} B distinct={distinct} B"}
+        del work
+    del evict
+    return timing
+
+
+def host_timings(ctx, gw, gt, rng, sweep, epoch_ops, epoch_bytes,
+                 mb: int = 1 << 20):
     """Host-clock µs/op of blocking put/get per size and of a coalesced
     epoch (each call ends in completion, so the clock covers the
     device work)."""
@@ -491,6 +928,52 @@ def host_timings(ctx, gw, gt, rng, sweep, epoch_ops, epoch_bytes):
         epoch()
     out["coalesced_us_per_op"] = ((time.perf_counter() - t0) / reps
                                   / epoch_ops * 1e6)
+
+    # the reduction plane: blocking f32 sum accumulate at the sweep's ends
+    # and a coalesced epoch of epoch_ops accumulates (one dispatch)
+    out["acc_us"] = {}
+    for size in (4, sweep[-1]):
+        reps = 50 if size < (1 << 18) else 10
+        vals = rand_vals(rng, "float32", size // 4)
+        g = gw[n - 1] + 28 * mb
+        dart.dart_accumulate_blocking(ctx, g, vals)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dart.dart_accumulate_blocking(ctx, g, vals)
+        out["acc_us"][size] = (time.perf_counter() - t0) / reps * 1e6
+    accs = [rand_vals(rng, "float32", epoch_bytes // 4)
+            for _ in range(epoch_ops)]
+
+    def acc_epoch():
+        hs = [dart.dart_accumulate(ctx, p, v) for p, v in zip(ptrs, accs)]
+        dart.dart_flush(ctx)
+        dart.dart_waitall(hs)
+
+    acc_epoch()
+    reps = 10
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        acc_epoch()
+    out["acc_coalesced_us_per_op"] = ((time.perf_counter() - t0) / reps
+                                      / epoch_ops * 1e6)
+
+    # self time per op of the two coalesced epochs, by function (cProfile
+    # adds its own cost to every Python call it sees)
+    out["epoch_profile"] = {}
+    for name, fn in (("put", epoch), ("accumulate", acc_epoch)):
+        prof = cProfile.Profile()
+        prof.enable()
+        for _ in range(3):
+            fn()
+        prof.disable()
+        stats = pstats.Stats(prof).stats
+        top = sorted(stats.items(), key=lambda kv: kv[1][2], reverse=True)
+        per_op = 3 * epoch_ops
+        out["epoch_profile"][name] = (
+            sum(v[2] for v in stats.values()) / per_op * 1e6,
+            [(f"{pathlib.Path(f).name}:{line}({fname})", nc / per_op,
+              tt / per_op * 1e6)
+             for (f, line, fname), (_, nc, tt, _, _) in top[:10]])
     return out
 
 
@@ -526,6 +1009,10 @@ def host_breakdown(ctx, g, sizes, reps: int = 200) -> dict:
         out["split"][("get", size)] = split(
             lambda: dart.dart_get_nb(ctx, g, (size,), torch.uint8),
             lambda h: h.value(), n)
+        vals = np.zeros(max(size, 4) // 4, np.float32)
+        out["split"][("accumulate", vals.nbytes)] = split(
+            lambda: dart.dart_accumulate(ctx, g, vals), lambda h: h.wait(),
+            n)
 
     pinned = torch.zeros(256, dtype=torch.uint8, pin_memory=True)
     small = torch.zeros(64, dtype=torch.uint8, device=dev)
@@ -639,23 +1126,61 @@ def main() -> int:
           f"{ctx.engine.plan_cache_hits} plan hits, launches {launches}")
     for k in ("scatter", "scatter_ordered", "gather"):
         check(launches[k] > 0, f"kernel {k} never launched on the main path")
-    check(launches["scatter"] + launches["scatter_ordered"]
-          + launches["gather"] == ctx.engine.dispatch_count,
+    check(sum(launches[k] for k in KERNELS) == ctx.engine.dispatch_count,
           "kernel launches do not account for every dispatch")
     print(f"ref launches on CUDA arenas: {launches['ref_on_cuda']}")
     check(launches["ref_on_cuda"] == 0, "a plain version ran on a CUDA arena")
 
+    # the reduction plane's path, counted on its own
+    d0 = ctx.engine.dispatch_count
+    sc.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_acc_phases(ctx, gw, gt, rng, sweep=ACC_SWEEP, block=1024, **shapes)
+    acc_launches = dict(sc.launch_counts)
+    acc_dispatches = ctx.engine.dispatch_count - d0
+    print(f"reduction plane: {time.perf_counter() - t0:.2f} s, "
+          f"{acc_dispatches} dispatches, launches {acc_launches}")
+    for k in ("accumulate", "accumulate_ordered", "get_accumulate"):
+        check(acc_launches[k] > 0,
+              f"kernel {k} never launched on the reduction plane's path")
+    check(sum(acc_launches[k] for k in KERNELS) == acc_dispatches,
+          "kernel launches do not account for every accumulate dispatch")
+    check(acc_launches["ref_on_cuda"] == 0,
+          "a plain version ran on a CUDA arena")
+
+    # the host-plane collectives: plain torch ops like the reference's XLA
+    # ops, each one counted dispatch; the flushes before them launch kernels
+    d0 = ctx.engine.dispatch_count
+    sc.reset_launch_counts()
+    t0 = time.perf_counter()
+    n_coll = run_coll_phases(ctx, gt, rng, nbytes=1 << 20)
+    coll_launches = dict(sc.launch_counts)
+    coll_dispatches = ctx.engine.dispatch_count - d0
+    print(f"collectives: {time.perf_counter() - t0:.2f} s, {n_coll} "
+          f"collectives, {coll_dispatches} dispatches, launches "
+          f"{coll_launches}")
+    check(sum(coll_launches[k] for k in KERNELS) + n_coll == coll_dispatches,
+          "collective dispatches are not the collectives plus their flushes")
+    check(coll_launches["ref_on_cuda"] == 0,
+          "a plain version ran on a CUDA arena")
+    for k in KERNELS + ("ref_on_cuda",):
+        launches[k] += acc_launches[k] + coll_launches[k]
+
     tabs = tables(rng, N_UNITS, POOL_BYTES, block=1024, mixed_max=1 << 20,
                   **shapes)
     timing = kernel_checks(ctx.state[0], tabs)
+    timing.update(acc_kernel_checks(
+        ctx.state[0], acc_tables(rng, N_UNITS, block=1024, **shapes), rng))
     host = host_timings(ctx, gw, gt, rng, SWEEP, shapes["epoch_ops"],
                         shapes["epoch_bytes"])
     parts = host_breakdown(ctx, gw[N_UNITS - 1], (SWEEP[0], SWEEP[-1]))
 
     for k, t in timing.items():
+        lib = ("none" if t["library_ms"] is None
+               else f"{t['library_ms']:.6f} ms")
         print(f"time {k} [{t['shape']}]: kernel {t['ms']:.6f} ms warm, "
               f"{t['cold_ms']:.6f} ms cold, plain {t['plain_ms']:.6f} ms, "
-              f"library {t['library_ms']:.6f} ms, bound {t['bound_ms']:.6f}"
+              f"library {lib}, bound {t['bound_ms']:.6f}"
               f" ms ({t['bytes']} B at 3.35 TB/s) on {card}")
     for size in SWEEP:
         print(f"blocking {size} B: put {host['put_us'][size]:.2f} us/op, "
@@ -663,6 +1188,17 @@ def main() -> int:
     print(f"coalesced epoch {shapes['epoch_ops']} x "
           f"{shapes['epoch_bytes']} B: {host['coalesced_us_per_op']:.3f} "
           f"us/op on {card}")
+    for size, us in host["acc_us"].items():
+        print(f"blocking accumulate (f32 sum) {size} B: {us:.2f} us/op on "
+              f"{card}")
+    print(f"coalesced accumulate epoch {shapes['epoch_ops']} x "
+          f"{shapes['epoch_bytes']} B (f32 sum): "
+          f"{host['acc_coalesced_us_per_op']:.3f} us/op on {card}")
+    for name, (total, top) in host["epoch_profile"].items():
+        print(f"host profile of the coalesced {name} epoch, self time per "
+              f"op (total {total:.2f} us under cProfile) on {card}:")
+        for fname, calls, us in top:
+            print(f"  {us:9.2f} us  {calls:5.2f} calls  {fname}")
     for key, (enq, fl, wt) in parts["split"].items():
         print(f"host {key[0]} {key[1]} B: enqueue {enq:.2f} us, flush "
               f"{fl:.2f} us, wait {wt:.2f} us, total {enq + fl + wt:.2f} us"
@@ -681,7 +1217,7 @@ def main() -> int:
                 "ms": timing[k]["ms"], "plain_ms": timing[k]["plain_ms"],
                 "bound_ms": timing[k]["bound_ms"], "bound_by": "bytes",
                 "library_ms": timing[k]["library_ms"]}
-               for k in ("scatter", "scatter_ordered", "gather")]
+               for k in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
 """DART core on torch: the paper's PGAS runtime (DART-MPI, §III/§IV)
 with its one-sided put/get path on a CUDA card.
 
-This slice of the port covers initialization, teams and groups, the
-symmetric heap, and the queued one-sided engine with its completion
-handles; its dispatches run the hand-written Hopper segmented-copy
-kernels of :mod:`repro_torch.kernels`.
+The port so far covers initialization, teams and groups, the symmetric
+heap, the queued one-sided engine with its completion handles, the
+reduction plane (``dart_accumulate`` / ``dart_get_accumulate``) and the
+host-plane collectives; the engine's dispatches run the hand-written
+Hopper segmented-copy and read-modify-write kernels of
+:mod:`repro_torch.kernels`.
 """
 
 from .faults import (DartError, FaultPlane, FaultSpec, FlushTimeoutError,
@@ -29,10 +31,14 @@ from .onesided import (WORLD_POOLID, CommEngine, GetHandle, Handle,
                        deref)
 from .atomics import AtomicsProvider, Cell, ThreadedAtomics
 from .lock import FREE, DartLock, LockService
-from .runtime import (DartConfig, DartContext, dart_exit, dart_flush,
-                      dart_get, dart_get_blocking, dart_get_nb, dart_init,
-                      dart_memalloc, dart_memfree, dart_put,
-                      dart_put_blocking, dart_team_create,
+from .runtime import (DartConfig, DartContext, dart_accumulate,
+                      dart_accumulate_blocking, dart_allreduce,
+                      dart_barrier, dart_bcast, dart_exit, dart_flush,
+                      dart_gather, dart_gather_typed, dart_get,
+                      dart_get_accumulate, dart_get_blocking, dart_get_nb,
+                      dart_init, dart_memalloc, dart_memfree, dart_put,
+                      dart_put_blocking, dart_reduce, dart_scatter,
+                      dart_scatter_typed, dart_team_create,
                       dart_team_destroy, dart_team_get_group,
                       dart_team_memalloc_aligned, dart_team_memfree,
                       dart_team_myid, dart_team_size, dart_team_split)
@@ -65,9 +71,13 @@ __all__ = [
     "AtomicsProvider", "Cell", "ThreadedAtomics", "FREE", "DartLock",
     "LockService",
     # runtime
-    "DartConfig", "DartContext", "dart_exit", "dart_flush", "dart_get",
+    "DartConfig", "DartContext", "dart_accumulate",
+    "dart_accumulate_blocking", "dart_allreduce", "dart_barrier",
+    "dart_bcast", "dart_exit", "dart_flush", "dart_gather",
+    "dart_gather_typed", "dart_get", "dart_get_accumulate",
     "dart_get_blocking", "dart_get_nb", "dart_init", "dart_memalloc",
-    "dart_memfree", "dart_put", "dart_put_blocking", "dart_team_create",
+    "dart_memfree", "dart_put", "dart_put_blocking", "dart_reduce",
+    "dart_scatter", "dart_scatter_typed", "dart_team_create",
     "dart_team_destroy", "dart_team_get_group",
     "dart_team_memalloc_aligned", "dart_team_memfree", "dart_team_myid",
     "dart_team_size", "dart_team_split",

@@ -18,8 +18,12 @@ and, for puts, one flat uint8 payload
 (:mod:`repro_torch.kernels.segmented_copy`), sends them host→device as
 two copies through a reused pinned staging buffer, and launches one
 kernel on the arena's device: the segmented scatter (disjoint runs), the
-ordered scatter (overlapping runs) or the segmented gather.  Arenas are
-updated in place.  On a CPU arena the plain torch versions run instead.
+ordered scatter (overlapping runs) or the segmented gather.  Accumulate
+runs (``accumulate`` / ``get_accumulate``, the reduction plane) carry an
+op column and launch the segmented read-modify-write kernel: parallel
+for disjoint runs, fused with the fetch for ``get_accumulate``, ordered
+for overlapping same-op runs.  Arenas are updated in place.  On a CPU
+arena the plain torch versions run instead.
 
 Completion ladder (paper §III): ``queued`` → (flush) → ``issued`` →
 ``complete``.  A handle's dispatch records a CUDA event; ``test()`` and
@@ -38,9 +42,9 @@ with MPI, a payload buffer must not change before its op completes.
 **Thread safety**: ``CommEngine.lock`` (reentrant) serializes enqueue,
 flush, the counters and the staging buffer.
 
-The fault plane (retry, deadlines, unit death), accumulates, the shm
-plane and the progress daemon are later slices of the port; until then
-every dispatch takes the reference's fault-free path.
+The fault plane (retry, deadlines, unit death), the shm plane and the
+progress daemon are later slices of the port; until then every dispatch
+takes the reference's fault-free path.
 """
 
 from __future__ import annotations
@@ -90,6 +94,27 @@ def _to_host_bytes(value) -> np.ndarray:
     if arr.dtype != np.uint8:
         arr = arr.view(np.uint8)
     return arr
+
+
+_CANONICAL_TORCH = {torch.float64: torch.float32, torch.int64: torch.int32,
+                    torch.complex128: torch.complex64}
+
+
+def _acc_value(value) -> Tuple[Tuple[int, ...], torch.dtype, np.ndarray]:
+    """An accumulate payload → ``(shape, dtype, host bytes)``, with the
+    reference's canonicalization (64-bit types narrowed to 32 bits).
+    Element types outside :data:`~repro_torch.kernels.segmented_copy.
+    ACC_DTYPES` — bool and complex among them — raise ``ValueError``
+    here, at initiation: the reference accepts them and fails at
+    dispatch, where the failed op then stays queued."""
+    if isinstance(value, torch.Tensor):
+        v = value.detach()
+        v = v.to(_CANONICAL_TORCH.get(v.dtype, v.dtype))
+        dt = v.dtype
+    else:
+        v = np.asarray(value)
+        dt = _CANONICAL.get(v.dtype, v.dtype)
+    return tuple(v.shape), _sc.acc_dtype(dt), _to_host_bytes(v)
 
 
 def _host_decode(raw: np.ndarray, shape: Tuple[int, ...], dtype
@@ -331,9 +356,10 @@ class _PendingGet:
 
 @dataclasses.dataclass(eq=False)
 class _PendingAcc:
-    """A queued element-wise accumulate.  The run rules below already
-    handle it, as in the reference; its enqueue (``accumulate``) comes
-    with the reduction-plane slice."""
+    """A queued element-wise accumulate (``MPI_Accumulate`` /
+    ``MPI_Get_accumulate``): read-modify-write at the target inside
+    the same epoch/flush discipline as puts.  ``fetch`` marks the
+    get-accumulate form, whose handle yields the pre-update value."""
     poolid: int
     row: int
     off: int
@@ -521,6 +547,77 @@ class CommEngine:
             what)
         return stride, count
 
+    def _stage_acc(self, heap: SymmetricHeap, teams_by_slot,
+                   gptr: GlobalPtr, value, op: str, stride: int,
+                   count: int):
+        """Shared accumulate initiation: deref + canonicalize + the
+        element-type, alignment and bounds checks the read-modify-write
+        kernels rely on."""
+        if op not in _sc.REDUCE_OPS:
+            raise ValueError(f"unknown reduction op {op!r} "
+                             f"(supported: {sorted(_sc.REDUCE_OPS)})")
+        poolid, row, off = deref(heap, teams_by_slot, gptr)
+        shape, dt, payload = _acc_value(value)
+        isz = dt.itemsize
+        pool_bytes = heap.pools[poolid].pool_bytes
+        if off % isz or pool_bytes % isz:
+            raise ValueError(
+                f"accumulate of {dt} needs an element-aligned offset "
+                f"and pool (off={off}, pool_bytes={pool_bytes})")
+        seg_len, stride, count = _check_strided(
+            off, int(payload.size), stride, count, pool_bytes,
+            "accumulate")
+        if seg_len % isz or stride % isz:
+            raise ValueError(
+                f"strided accumulate of {dt} needs element-aligned "
+                f"segment length and stride (seg={seg_len}, "
+                f"stride={stride})")
+        return poolid, row, off, shape, payload, dt, stride, count
+
+    def accumulate(self, heap: SymmetricHeap, teams_by_slot,
+                   gptr: GlobalPtr, value, op: str = "sum", *,
+                   stride: int = 0, count: int = 1) -> Handle:
+        """Queued element-wise accumulate at the target
+        (``MPI_Accumulate``): enqueues like ``put``; same-op runs
+        coalesce into one segmented read-modify-write dispatch at flush
+        — even overlapping ones (the ops commute), while mixed-op or
+        accumulate-vs-put overlap splits the run in queue order."""
+        poolid, row, off, _, payload, dt, stride, count = self._stage_acc(
+            heap, teams_by_slot, gptr, value, op, stride, count)
+        h = Handle((), engine=self)
+        h.poolid = poolid
+        h.row = row
+        self._enqueue_acc(poolid, row, off, payload, op, dt, False, h,
+                          stride, count, gptr.unitid)
+        return h
+
+    def get_accumulate(self, heap: SymmetricHeap, teams_by_slot,
+                       gptr: GlobalPtr, value, op: str = "sum", *,
+                       stride: int = 0, count: int = 1) -> GetHandle:
+        """Queued fetch-and-accumulate (``MPI_Get_accumulate``):
+        ``handle.value()`` flushes and yields the target's value from
+        *before* this op applied.  Byte-disjoint same-op fetches share
+        one fused dispatch; overlap splits the run so every fetched
+        value matches the sequential order."""
+        poolid, row, off, shape, payload, dt, stride, count = (
+            self._stage_acc(heap, teams_by_slot, gptr, value, op, stride,
+                            count))
+        h = GetHandle(shape, dt, engine=self)
+        h.poolid = poolid
+        h.row = row
+        self._enqueue_acc(poolid, row, off, payload, op, dt, True, h,
+                          stride, count, gptr.unitid)
+        return h
+
+    def _enqueue_acc(self, poolid, row, off, payload, op, dt, fetch, h,
+                     stride, count, unit) -> None:
+        with self.lock:
+            self._pending.append(_PendingAcc(
+                poolid, row, off, payload, op, str(dt).split(".")[-1],
+                fetch, h, time.monotonic(), stride=stride, count=count,
+                unit=unit))
+            self.ops_enqueued += 1
+
     def pending_ops(self, poolid: Optional[int] = None,
                     row: Optional[int] = None) -> int:
         with self.lock:
@@ -576,6 +673,8 @@ class CommEngine:
                     arena = state[run[0].poolid]
                     if isinstance(run[0], _PendingPut):
                         self._dispatch_put_run(arena, run, disjoint)
+                    elif isinstance(run[0], _PendingAcc):
+                        self._dispatch_acc_run(arena, run, disjoint)
                     else:
                         self._dispatch_get_run(arena, run)
                     done.update(id(op) for op in run)
@@ -658,6 +757,47 @@ class CommEngine:
         events = self._completion(arena)
         for op in run:
             op.handle._resolve(events)
+
+    def _dispatch_acc_run(self, arena: torch.Tensor,
+                          run: Sequence[_PendingAcc],
+                          disjoint: bool = True) -> None:
+        """One counted dispatch for a same-(op, dtype) accumulate run:
+        the parallel read-modify-write when the run's byte ranges are
+        provably disjoint, the ordered one otherwise (still one
+        dispatch, bitwise the blocking order).  Payloads are staged
+        densely, as for puts, with the table's ``START`` column at
+        their dense offsets: the kernels touch valid lanes only, so the
+        reference's ``kb*seg`` identity-filled buffer is never built
+        (its length stays the plan key's ``flat_len``).  Strided runs
+        take the kernels too.  A fetch run (byte-disjoint by the run
+        rule) returns every op's pre-update window from the same
+        dispatch."""
+        self.dispatch_count += 1
+        if len(run) > 1:
+            self.ops_coalesced += len(run)
+        first = run[0]
+        desc, seg = _sc.pack_acc_table(
+            [op.row for op in run], [op.off for op in run],
+            [int(op.payload.size) // op.count for op in run], first.op,
+            strides=[op.stride for op in run],
+            counts=[op.count for op in run])
+        kb = desc.shape[0]
+        impl = _sc.resolve_impl(self.impl, arena)
+        fn, hit = _sc.accumulate_plan(
+            tuple(arena.shape), kb, seg, kb * seg, op=first.op,
+            dtype=first.dtype, fetch=first.fetch, ordered=not disjoint,
+            impl=impl)
+        self._note_plan(hit)
+        d, f = self._stage(arena, desc, [op.payload for op in run])
+        res = fn(arena, d, f)
+        events = self._completion(arena)
+        if first.fetch:
+            batch = _GatherBatch(res[1])
+            for i, op in enumerate(run):
+                op.handle._resolve_gather(batch, i, events)
+        else:
+            for op in run:
+                op.handle._resolve(events)
 
     def _dispatch_get_run(self, arena: torch.Tensor,
                           run: Sequence[_PendingGet]) -> None:

@@ -14,10 +14,10 @@ DART_TEAM_ALL with its collective pool.  The heap lives on ``cuda:0``
 unless the caller names another device; with no CUDA device and no
 explicit ``device``, ``dart_init`` raises rather than run on the host.
 
-Blocking put/get go through the engine: the reference routes
-``FLAG_SHM`` pointers on host-visible arenas through its shm plane
-first, which a CUDA arena never is; the port's shm plane is a later
-slice.
+Blocking put/get/accumulate and the host-plane collectives go through
+the engine: the reference routes ``FLAG_SHM`` pointers on host-visible
+arenas through its shm plane first, which a CUDA arena never is; the
+port's shm plane is a later slice.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from .group import DartGroup
 from .lock import LockService
 from .team import (DART_TEAM_ALL, FreeListTeamList, Team, TeamList,
                    TeamPartition)
+from . import collectives as _coll
 from . import onesided as _os
 
 
@@ -255,6 +256,41 @@ def dart_put_blocking(ctx: DartContext, gptr: GlobalPtr, value, *,
                    stride=stride, count=count).wait()
 
 
+def dart_accumulate(ctx: DartContext, gptr: GlobalPtr, value,
+                    op: str = "sum", *, stride: int = 0, count: int = 1):
+    """Non-blocking element-wise accumulate at the target (the
+    ``MPI_Accumulate`` analogue): enqueue on the engine, return a
+    queued handle.  Consecutive same-``op`` accumulates to one pool
+    coalesce into ONE segmented read-modify-write dispatch at flush —
+    overlapping ranges included, since the ops commute; mixed-op or
+    accumulate-vs-put overlap splits the run in queue order."""
+    return ctx.engine.accumulate(ctx.heap, ctx.teams_by_slot, gptr, value,
+                                 op, stride=stride, count=count)
+
+
+def dart_accumulate_blocking(ctx: DartContext, gptr: GlobalPtr, value,
+                             op: str = "sum", *, stride: int = 0,
+                             count: int = 1) -> None:
+    """Blocking accumulate: enqueue, flush the target's lane, and wait
+    for the dispatch to complete."""
+    ctx.engine.accumulate(ctx.heap, ctx.teams_by_slot, gptr, value, op,
+                          stride=stride, count=count).wait()
+
+
+def dart_get_accumulate(ctx: DartContext, gptr: GlobalPtr, value,
+                        op: str = "sum", *, stride: int = 0,
+                        count: int = 1):
+    """Fetch-and-accumulate (the ``MPI_Get_accumulate`` analogue):
+    flushes the target's ``(pool, row)`` lane and returns ``(old_value,
+    handle)`` — the target's typed value from *before* this op applied,
+    as a CPU tensor.  For the queued form use
+    ``ctx.engine.get_accumulate`` and ``handle.value()`` later."""
+    h = ctx.engine.get_accumulate(ctx.heap, ctx.teams_by_slot, gptr, value,
+                                  op, stride=stride, count=count)
+    ctx.engine.flush(h.poolid, h.row)
+    return h.value(), h
+
+
 def dart_get_nb(ctx: DartContext, gptr: GlobalPtr, shape, dtype, *,
                 stride: int = 0, count: int = 1):
     """Non-blocking get: enqueue; ``handle.value()`` flushes and yields
@@ -298,3 +334,82 @@ def dart_flush(ctx: DartContext, gptr: Optional[GlobalPtr] = None,
         gptr = gptr.setunit(target)
     poolid, row, _ = _os.deref(ctx.heap, ctx.teams_by_slot, gptr)
     ctx.engine.flush(poolid, row if target is not None else None)
+
+
+# -- host-plane collectives ---------------------------------------------------
+#
+# Each wrapper holds the engine lock for the whole flush-compute-update
+# of ctx.state (the lock is reentrant, so the flush inside re-enters).
+# The reference first offers bcast/gather/scatter to its shm plane,
+# which serves FLAG_SHM pointers on host-visible pools by memcpy with no
+# dispatch; the port has no shm plane yet, so they always go through the
+# engine (see ROADMAP queue 3).
+
+def dart_bcast(ctx: DartContext, root_gptr: GlobalPtr, nbytes: int):
+    with ctx.engine.lock:
+        ctx.state, h = _coll.dart_bcast(ctx.state, ctx.heap,
+                                        ctx.teams_by_slot, root_gptr,
+                                        nbytes, engine=ctx.engine)
+    return h
+
+
+def dart_gather(ctx: DartContext, gptr: GlobalPtr, per_unit_nbytes: int):
+    """Every row's ``per_unit_nbytes`` at ``gptr.addr`` → ``(out,
+    handle)``, ``out`` a CPU uint8 tensor ``(n_rows, per_unit_nbytes)``."""
+    with ctx.engine.lock:
+        return _coll.dart_gather(ctx.state, ctx.heap, ctx.teams_by_slot,
+                                 gptr, per_unit_nbytes, engine=ctx.engine)
+
+
+def dart_gather_typed(ctx: DartContext, gptr: GlobalPtr, shape, dtype):
+    """Typed gather: every row's value at ``gptr.addr`` → a CPU tensor
+    ``(n_rows, *shape)``."""
+    with ctx.engine.lock:
+        return _coll.dart_gather_typed(ctx.state, ctx.heap,
+                                       ctx.teams_by_slot, gptr, shape,
+                                       dtype, engine=ctx.engine)
+
+
+def dart_scatter(ctx: DartContext, gptr: GlobalPtr, values):
+    with ctx.engine.lock:
+        ctx.state, h = _coll.dart_scatter(ctx.state, ctx.heap,
+                                          ctx.teams_by_slot, gptr, values,
+                                          engine=ctx.engine)
+    return h
+
+
+def dart_scatter_typed(ctx: DartContext, gptr: GlobalPtr, values):
+    """Typed scatter: row i of ``values`` ((n_rows, *shape)) → unit i."""
+    with ctx.engine.lock:
+        ctx.state, h = _coll.dart_scatter_typed(ctx.state, ctx.heap,
+                                                ctx.teams_by_slot, gptr,
+                                                values, engine=ctx.engine)
+    return h
+
+
+def dart_allreduce(ctx: DartContext, gptr: GlobalPtr, shape, dtype,
+                   op: str = "sum"):
+    with ctx.engine.lock:
+        ctx.state, red = _coll.dart_allreduce(ctx.state, ctx.heap,
+                                              ctx.teams_by_slot, gptr,
+                                              shape, dtype, op,
+                                              engine=ctx.engine)
+    return red
+
+
+def dart_reduce(ctx: DartContext, gptr: GlobalPtr, shape, dtype,
+                op: str = "sum", root: int = 0):
+    """Root-taking reduce: the reduced value replaces only ``root``'s
+    copy (other rows keep their own); returns the reduced value."""
+    with ctx.engine.lock:
+        ctx.state, red = _coll.dart_reduce(ctx.state, ctx.heap,
+                                           ctx.teams_by_slot, gptr, shape,
+                                           dtype, op, root,
+                                           engine=ctx.engine)
+    return red
+
+
+def dart_barrier(ctx: DartContext) -> None:
+    with ctx.engine.lock:
+        ctx.engine.flush()
+        _coll.dart_barrier(ctx.state)

@@ -40,6 +40,10 @@ _SIGNATURES = {
                                _int, _vp],
     # arena, n_rows, pool_bytes, desc, kb, out, seg, stream
     "dart_segmented_gather": [_vp, _ll, _ll, _vp, _int, _vp, _int, _vp],
+    # arena, n_rows, pool_bytes, desc, kb, flat, flat_len, seg, op, dtype,
+    # ordered, out (or NULL), stream
+    "dart_segmented_accumulate": [_vp, _ll, _ll, _vp, _int, _vp, _ll, _int,
+                                  _int, _int, _int, _vp, _vp],
 }
 
 

@@ -17,20 +17,30 @@ the segment to a power of two (floor 16) and the flat buffer to
 nothing, so a small family of plans serves every epoch.
 
 The host layer — :func:`bucket_pow2`, :func:`pack_descriptors`,
-:func:`check_flat_addressable`, :func:`strided_buckets` and the column
-constants — is the JAX reference's numpy code, verbatim, so both
-packages stage byte-identical tables.
+:func:`pack_acc_descriptors`, :func:`check_flat_addressable`,
+:func:`strided_buckets`, :data:`REDUCE_OPS` and the column constants —
+is the JAX reference's numpy code, verbatim, so both packages stage
+byte-identical tables; :func:`op_identity` / :func:`identity_bytes`
+build the same identities with torch (bfloat16 included).
 
-Two implementations sit behind :func:`scatter_plan` / :func:`gather_plan`:
+The reduction plane (``dart_accumulate`` / ``dart_get_accumulate``)
+rides the same substrate: an accumulate descriptor adds an op column
+(``(kb, 7)``), and each valid lane's element becomes ``old op payload``
+(:func:`combine`: sum, prod, min, max with XLA's semantics).
+
+Two implementations sit behind :func:`scatter_plan`,
+:func:`gather_plan` and :func:`accumulate_plan`:
 
 * ``'cuda'`` — the hand-written Hopper kernels of
   ``csrc/segmented_copy.cu`` (ports of the reference's
-  ``_pallas_scatter_kernel`` and ``_pallas_gather_kernel``), launched
-  by :func:`scatter_cuda` / :func:`gather_cuda` on the arena's device;
+  ``_pallas_scatter_kernel``, ``_pallas_gather_kernel`` and
+  ``_pallas_acc_kernel``), launched by :func:`scatter_cuda` /
+  :func:`gather_cuda` / :func:`accumulate_cuda` on the arena's device;
 * ``'ref'`` — plain torch versions of the reference's XLA kernels
-  (``_ref_scatter_vec``, ``_ref_scatter_ordered``, ``_ref_gather``) with
-  the same flat-index formula and masking.  They serve CPU arenas and
-  the tests.
+  (``_ref_scatter_vec``, ``_ref_scatter_ordered``, ``_ref_gather``,
+  ``_ref_accumulate_vec``, ``_ref_accumulate_ordered``) with the same
+  flat-index formula and masking.  They serve CPU arenas and the
+  tests.
 
 ``'auto'`` picks the kernel for a CUDA arena and the plain version for a
 CPU arena (:func:`resolve_impl`).  The kernels address every lane
@@ -44,6 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import threading
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -54,6 +65,16 @@ import torch
 ROW, OFF, LEN, START, STRIDE, COUNT, OPCODE = 0, 1, 2, 3, 4, 5, 6
 DESC_COLS = 6           # put/get descriptor width
 ACC_DESC_COLS = 7       # accumulate descriptor width (adds OPCODE)
+
+#: element-wise reduction ops of the reduction plane (dart_accumulate /
+#: dart_allreduce): name → descriptor op code.
+REDUCE_OPS = {"sum": 0, "prod": 1, "min": 2, "max": 3}
+
+#: element types the accumulate kernels take, in the order of their type
+#: codes in ``csrc/segmented_copy.cu`` (64-bit values are narrowed to
+#: 32 bits at initiation; bool and complex are refused there).
+ACC_DTYPES = ("int8", "uint8", "int16", "uint16", "int32", "uint32",
+              "float16", "bfloat16", "float32")
 
 #: smallest segment bucket — tiny ops (1..16 B) share one plan
 SEG_FLOOR = 16
@@ -115,6 +136,101 @@ def pack_descriptors(rows: Sequence[int], offs: Sequence[int],
         for s, p in zip(starts, payloads):
             flat[int(s):int(s) + p.size] = p
     return desc, flat, seg
+
+
+def acc_dtype(dtype) -> torch.dtype:
+    """The torch dtype of an accumulate element type (a torch or numpy
+    dtype, or a name); raises ``ValueError`` outside :data:`ACC_DTYPES`."""
+    from repro_torch.core.globmem import torch_dtype
+    try:
+        dt = torch_dtype(dtype)
+    except TypeError:
+        dt = None
+    if dt is None or str(dt).split(".")[-1] not in ACC_DTYPES:
+        raise ValueError(f"accumulate of {dtype} is not supported "
+                         f"(element types: {', '.join(ACC_DTYPES)})")
+    return dt
+
+
+def op_identity(op: str, dtype) -> torch.Tensor:
+    """The identity element of ``op`` over ``dtype`` (``x op identity ==
+    x``), as a 0-d CPU tensor: 0 / 1 for sum / prod, ``+inf`` / ``-inf``
+    (floating) or the type's max / min (integral) for min / max."""
+    if op not in REDUCE_OPS:
+        raise ValueError(f"unknown reduction op {op!r} "
+                         f"(supported: {sorted(REDUCE_OPS)})")
+    from repro_torch.core.globmem import torch_dtype
+    dt = torch_dtype(dtype)
+    if dt.is_floating_point:
+        v = {"sum": 0.0, "prod": 1.0, "min": math.inf, "max": -math.inf}[op]
+    elif dt.is_complex or dt == torch.bool:
+        raise ValueError(f"no {op} identity over {dt}")
+    else:
+        info = torch.iinfo(dt)
+        v = {"sum": 0, "prod": 1, "min": info.max, "max": info.min}[op]
+    return torch.tensor(v, dtype=dt)
+
+
+def identity_bytes(op: str, dtype) -> np.ndarray:
+    """``op``'s identity element as its little-endian byte pattern
+    (``itemsize`` uint8 values)."""
+    return op_identity(op, dtype).reshape(1).view(torch.uint8).numpy().copy()
+
+
+def pack_acc_descriptors(rows: Sequence[int], offs: Sequence[int],
+                         lens: Sequence[int],
+                         payloads: Sequence[np.ndarray],
+                         op: str, dtype,
+                         strides: Optional[Sequence[int]] = None,
+                         counts: Optional[Sequence[int]] = None
+                         ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """The reference's accumulate staging: one bucketed ``(k', 7)``
+    int32 table (``row, off, len, start, stride, count, op``) and one
+    ``k'*seg`` flat buffer in which op ``i`` owns the slot at ``start =
+    i*seg``, pre-filled with the op's identity.  The engine stages
+    payloads densely instead (:func:`pack_acc_table`); this layout is
+    kept for the tests, which hold both against the reference."""
+    k = len(rows)
+    kb = bucket_pow2(k, K_FLOOR)
+    lens = np.asarray(lens, np.int64)
+    counts = (np.ones(k, np.int64) if counts is None
+              else np.asarray(counts, np.int64))
+    strides = (np.zeros(k, np.int64) if strides is None
+               else np.asarray(strides, np.int64))
+    totals = lens * counts
+    seg = bucket_pow2(int(totals.max()) if k else 1, SEG_FLOOR)
+    desc = np.zeros((kb, ACC_DESC_COLS), np.int32)
+    desc[:k, ROW] = rows
+    desc[:k, OFF] = offs
+    desc[:k, LEN] = lens
+    desc[:k, STRIDE] = strides
+    desc[:k, COUNT] = counts
+    desc[:k, START] = np.arange(k, dtype=np.int64) * seg
+    desc[k:, START] = np.arange(k, kb, dtype=np.int64) * seg
+    desc[:, OPCODE] = REDUCE_OPS[op]
+    ident = identity_bytes(op, dtype)
+    flat = np.tile(ident, kb * seg // ident.size)
+    for i, p in enumerate(payloads):
+        flat[i * seg:i * seg + p.size] = p
+    return desc, flat, seg
+
+
+def pack_acc_table(rows: Sequence[int], offs: Sequence[int],
+                   lens: Sequence[int], op: str,
+                   strides: Optional[Sequence[int]] = None,
+                   counts: Optional[Sequence[int]] = None
+                   ) -> Tuple[np.ndarray, int]:
+    """``(desc, seg)``: the ``(k', 7)`` accumulate table with the
+    payloads' starts dense in run order, as :func:`pack_descriptors`
+    lays out puts, for callers that stage the payloads themselves.  The
+    kernels and plain versions touch valid lanes only, so no identity
+    fill is needed; the plan key keeps the reference's ``k'*seg``."""
+    d6, _, seg = pack_descriptors(rows, offs, lens, strides=strides,
+                                  counts=counts)
+    desc = np.zeros((d6.shape[0], ACC_DESC_COLS), np.int32)
+    desc[:, :DESC_COLS] = d6
+    desc[:, OPCODE] = REDUCE_OPS[op]
+    return desc, seg
 
 
 def flat_bucket(kb: int, seg: int) -> int:
@@ -238,6 +354,105 @@ def gather_ref(arena: torch.Tensor, desc: torch.Tensor, *, seg: int
     return _ref_gather(arena, desc, seg=seg)
 
 
+_SIGNED_OF = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+
+
+def combine(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
+    """``a op b`` element-wise on typed tensors, with the reference's
+    (XLA's) semantics written out: float16/bfloat16 computed in float32
+    and rounded to nearest even; min/max NaN-propagating (a NaN operand
+    gives ``a + b``, the hardware's NaN) and ordering ``-0 < +0``, so
+    ``min(±0, ∓0) = -0`` and ``max(±0, ∓0) = +0`` (``torch.minimum``
+    returns its first operand on a tie); integer sum/prod wrap in two's
+    complement."""
+    dt = a.dtype
+    if dt.is_floating_point:
+        x, y = a.float(), b.float()
+        if op == "sum":
+            r = x + y
+        elif op == "prod":
+            r = x * y
+        else:
+            xi, yi = x.view(torch.int32), y.view(torch.int32)
+            if op == "min":
+                tie = (xi | yi).view(torch.float32)
+                r = torch.where(x < y, x, torch.where(y < x, y, tie))
+            else:
+                tie = (xi & yi).view(torch.float32)
+                r = torch.where(x > y, x, torch.where(y > x, y, tie))
+            r = torch.where(torch.isnan(x) | torch.isnan(y), x + y, r)
+        return r.to(dt)
+    isz = dt.itemsize
+    sv = _SIGNED_OF[isz]
+    # the signed view's values in int64: sums and products are exact
+    # (|x|, |y| <= 2**31) and their low bytes are the wrapped result
+    x, y = a.view(sv).to(torch.int64), b.view(sv).to(torch.int64)
+    if op == "sum":
+        r = x + y
+    elif op == "prod":
+        r = x * y
+    else:
+        if not dt.is_signed:
+            mask = (1 << (8 * isz)) - 1
+            x, y = x & mask, y & mask
+        r = torch.minimum(x, y) if op == "min" else torch.maximum(x, y)
+    low = r.reshape(-1, 1).view(torch.uint8)[:, :isz].reshape(-1)
+    return low.view(dt).reshape(a.shape)
+
+
+def _ref_accumulate_vec(arena: torch.Tensor, desc: torch.Tensor,
+                        flat: torch.Tensor, *, seg: int, op: str,
+                        dtype: torch.dtype, fetch: bool):
+    """Disjoint segmented read-modify-write in one vectorized pass: read
+    every valid lane's arena bytes, combine them with the payload at
+    ``START + lane`` as elements of ``dtype``, write them back.  Masked
+    lanes are never touched, so this works on the reference's
+    identity-padded layout and on a dense one alike.  With ``fetch`` the
+    ``(kb, seg)`` pre-update windows come back too, zero past each
+    op's bytes."""
+    P = arena.shape[1]
+    d = desc.to(torch.int64)
+    valid, lane = _lane_mask(d, seg)
+    dst = _strided_dst(d, lane, P)[valid]
+    src = (d[:, START][:, None] + lane)[valid]
+    cells = arena.view(-1)
+    old = cells[dst]
+    cells[dst] = combine(old.view(dtype), flat[src].view(dtype),
+                         op).view(torch.uint8)
+    if not fetch:
+        return arena
+    out = torch.zeros((d.shape[0], seg), dtype=torch.uint8,
+                      device=arena.device)
+    out[valid] = old
+    return arena, out
+
+
+def _ref_accumulate_ordered(arena: torch.Tensor, desc: torch.Tensor,
+                            flat: torch.Tensor, *, seg: int, op: str,
+                            dtype: torch.dtype) -> torch.Tensor:
+    """Overlap-tolerant accumulate: descriptors read-modify-write
+    strictly in table order, bitwise the blocking order."""
+    for i in range(desc.shape[0]):
+        _ref_accumulate_vec(arena, desc[i:i + 1], flat, seg=seg, op=op,
+                            dtype=dtype, fetch=False)
+    return arena
+
+
+def accumulate_ref(arena: torch.Tensor, desc: torch.Tensor,
+                   flat: torch.Tensor, *, seg: int, op: str, dtype,
+                   fetch: bool, ordered: bool):
+    """The plain version of :func:`accumulate_cuda`, on any device."""
+    if fetch and ordered:
+        raise ValueError("a fetch run is disjoint: it never takes the "
+                         "ordered accumulate")
+    dt = acc_dtype(dtype)
+    if ordered:
+        return _ref_accumulate_ordered(arena, desc, flat, seg=seg, op=op,
+                                       dtype=dt)
+    return _ref_accumulate_vec(arena, desc, flat, seg=seg, op=op, dtype=dt,
+                               fetch=fetch)
+
+
 # --------------------------------------------------------------------------
 # Hand-written Hopper kernels ('cuda') — csrc/segmented_copy.cu
 # --------------------------------------------------------------------------
@@ -246,7 +461,9 @@ def gather_ref(arena: torch.Tensor, desc: torch.Tensor, *, seg: int
 #: (and nowhere else); ``ref_on_cuda`` counts plain-version calls on CUDA
 #: arenas, which the engine never makes under ``impl='auto'``.
 launch_counts: Dict[str, int] = {"scatter": 0, "scatter_ordered": 0,
-                                 "gather": 0, "ref_on_cuda": 0}
+                                 "gather": 0, "accumulate": 0,
+                                 "accumulate_ordered": 0,
+                                 "get_accumulate": 0, "ref_on_cuda": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -261,8 +478,8 @@ def _bump(name: str) -> None:
         launch_counts[name] += 1
 
 
-def _check_common(arena: torch.Tensor, desc: torch.Tensor, seg: int
-                  ) -> None:
+def _check_common(arena: torch.Tensor, desc: torch.Tensor, seg: int,
+                  cols: int = DESC_COLS) -> None:
     if not arena.is_cuda:
         raise ValueError("the CUDA segmented-copy kernels need a CUDA "
                          f"arena, got one on {arena.device}")
@@ -270,8 +487,8 @@ def _check_common(arena: torch.Tensor, desc: torch.Tensor, seg: int
         raise ValueError(f"arena must be 2-D uint8, got {arena.dtype} "
                          f"{tuple(arena.shape)}")
     if (desc.device != arena.device or desc.dtype != torch.int32
-            or desc.dim() != 2 or desc.shape[1] != DESC_COLS):
-        raise ValueError(f"desc must be int32 (kb, {DESC_COLS}) on "
+            or desc.dim() != 2 or desc.shape[1] != cols):
+        raise ValueError(f"desc must be int32 (kb, {cols}) on "
                          f"{arena.device}, got {desc.dtype} "
                          f"{tuple(desc.shape)} on {desc.device}")
     if not (arena.is_contiguous() and desc.is_contiguous()):
@@ -280,6 +497,13 @@ def _check_common(arena: torch.Tensor, desc: torch.Tensor, seg: int
         raise ValueError(f"seg must be a power of two >= {SEG_FLOOR}, "
                          f"got {seg}")
     check_flat_addressable(tuple(arena.shape))
+
+
+def _check_flat(arena: torch.Tensor, flat: torch.Tensor) -> None:
+    if (flat.device != arena.device or flat.dtype != torch.uint8
+            or flat.dim() != 1 or not flat.is_contiguous()):
+        raise ValueError(f"flat must be a contiguous 1-D uint8 tensor on "
+                         f"{arena.device}")
 
 
 def scatter_cuda(arena: torch.Tensor, desc: torch.Tensor,
@@ -294,10 +518,7 @@ def scatter_cuda(arena: torch.Tensor, desc: torch.Tensor,
     from . import _build
 
     _check_common(arena, desc, seg)
-    if (flat.device != arena.device or flat.dtype != torch.uint8
-            or flat.dim() != 1 or not flat.is_contiguous()):
-        raise ValueError(f"flat must be a contiguous 1-D uint8 tensor on "
-                         f"{arena.device}")
+    _check_flat(arena, flat)
     lib = _build.load()
     with torch.cuda.device(arena.device):
         stream = torch.cuda.current_stream(arena.device).cuda_stream
@@ -334,6 +555,52 @@ def gather_cuda(arena: torch.Tensor, desc: torch.Tensor, *, seg: int
                            f"{_build.error_string(err)}")
     _bump("gather")
     return out
+
+
+def accumulate_cuda(arena: torch.Tensor, desc: torch.Tensor,
+                    flat: torch.Tensor, *, seg: int, op: str, dtype,
+                    fetch: bool, ordered: bool):
+    """Segmented read-modify-write of ``arena`` in place, on its current
+    stream: each valid lane's element becomes ``old op payload`` (the
+    payload at ``START + lane`` of ``flat``), as elements of ``dtype``.
+    ``ordered`` applies the descriptors strictly in table order (one
+    CTA, a barrier between descriptors) for overlapping runs; otherwise
+    one parallel grid covers every (descriptor, lane chunk).  ``fetch``
+    (disjoint runs only) also returns the ``(kb, seg)`` pre-update
+    windows, zero past each op's bytes — byte-identical to
+    :func:`accumulate_ref`.  The descriptors must be element-aligned and
+    lie inside the arena and ``flat``: the engine checks each op at
+    enqueue."""
+    from . import _build
+
+    _check_common(arena, desc, seg, ACC_DESC_COLS)
+    _check_flat(arena, flat)
+    if op not in REDUCE_OPS:
+        raise ValueError(f"unknown reduction op {op!r}")
+    if fetch and ordered:
+        raise ValueError("a fetch run is disjoint: it never takes the "
+                         "ordered accumulate")
+    dt = acc_dtype(dtype)
+    if arena.shape[1] % dt.itemsize:
+        raise ValueError(f"pool bytes {arena.shape[1]} are not a multiple "
+                         f"of the {dt} element size")
+    out = (torch.empty((desc.shape[0], seg), dtype=torch.uint8,
+                       device=arena.device) if fetch else None)
+    lib = _build.load()
+    with torch.cuda.device(arena.device):
+        stream = torch.cuda.current_stream(arena.device).cuda_stream
+        err = lib.dart_segmented_accumulate(
+            arena.data_ptr(), arena.shape[0], arena.shape[1],
+            desc.data_ptr(), desc.shape[0], flat.data_ptr(), flat.shape[0],
+            seg, REDUCE_OPS[op], ACC_DTYPES.index(str(dt).split(".")[-1]),
+            int(ordered), None if out is None else out.data_ptr(),
+            ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"segmented accumulate launch failed: "
+                           f"{_build.error_string(err)}")
+    _bump("get_accumulate" if fetch else
+          "accumulate_ordered" if ordered else "accumulate")
+    return (arena, out) if fetch else arena
 
 
 def _ref_on(fn: Callable) -> Callable:
@@ -410,6 +677,38 @@ def scatter_plan(arena_shape: Tuple[int, int], kb: int, seg: int,
     def build():
         fn = scatter_cuda if impl == "cuda" else _ref_on(scatter_ref)
         return functools.partial(fn, seg=seg, ordered=ordered)
+
+    return cached_plan(key, build)
+
+
+def accumulate_plan(arena_shape: Tuple[int, int], kb: int, seg: int,
+                    flat_len: int, *, op: str, dtype, fetch: bool,
+                    ordered: bool = False, impl: str = "ref"
+                    ) -> Tuple[Callable, bool]:
+    """fn(arena, desc, flat) -> arena, updated in place (or ``(arena,
+    old_windows)`` with ``fetch``, the ``MPI_Get_accumulate`` form).
+    ``ordered`` applies descriptors in queue order (overlapping
+    same-op runs); a fetch run is byte-disjoint by the run rule and
+    always takes the parallel pass.  The key fields are the reference's;
+    the reference forces ``impl='ref'`` into fetch keys because its
+    Pallas kernel has no fetch form, while here the CUDA kernel fuses
+    the fetch, so the key keeps the impl that runs (on a CPU arena,
+    ``'ref'``: the reference's keys)."""
+    check_flat_addressable(arena_shape)
+    if op not in REDUCE_OPS:
+        raise ValueError(f"unknown reduction op {op!r}")
+    dt = acc_dtype(dtype)
+    if seg % dt.itemsize or arena_shape[1] % dt.itemsize:
+        raise ValueError(
+            f"accumulate of {dt} needs element-aligned segment/pool "
+            f"bytes (seg={seg}, pool_bytes={arena_shape[1]})")
+    key = ("accumulate", impl, tuple(arena_shape), kb, seg, flat_len, op,
+           str(dt), fetch, ordered)
+
+    def build():
+        fn = accumulate_cuda if impl == "cuda" else _ref_on(accumulate_ref)
+        return functools.partial(fn, seg=seg, op=op, dtype=dt, fetch=fetch,
+                                 ordered=ordered and not fetch)
 
     return cached_plan(key, build)
 

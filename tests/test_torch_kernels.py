@@ -96,3 +96,128 @@ def test_cuda_gather_matches_plain(cuda_device, name):
     k = tsc.gather_cuda(a, d, seg=seg)
     torch.cuda.synchronize()
     assert torch.equal(k, tsc.gather_ref(a, d, seg=seg))
+
+
+# ---------------------------------------- accumulate kernels on the card --
+
+ACC_KINDS = ["disjoint", "ordered", "fetch", "strided", "pool_end",
+             "padded"]
+
+
+def _special(rng, dtype, n):
+    """Random elements of ``dtype`` with the edge cases mixed in: NaN,
+    ±0, ±inf, denormals and the largest finite values for floats (so
+    sums overflow and products underflow); the type's min, max, 0 and
+    -1 for integers (so sums and products wrap)."""
+    tdt = getattr(torch, dtype)
+    if tdt.is_floating_point:
+        info = torch.finfo(tdt)
+        v = torch.from_numpy(rng.standard_normal(n).astype(np.float32) * 3)
+        sp = torch.tensor([0.0, -0.0, float("inf"), float("-inf"),
+                           float("nan"), info.tiny / 4, -info.tiny / 2,
+                           info.max, -info.max, info.tiny])
+        pick = torch.from_numpy(rng.random(n) < 0.4)
+        v[pick] = sp[torch.from_numpy(rng.integers(0, len(sp),
+                                                   int(pick.sum())))]
+        return v.to(tdt)
+    info = torch.iinfo(tdt)
+    v = rng.integers(info.min, info.max, n, endpoint=True, dtype=np.int64)
+    ext = np.array([info.min, info.max, 0, -1 if info.min < 0 else 1])
+    pick = rng.random(n) < 0.3
+    v[pick] = rng.choice(ext, int(pick.sum()))
+    return torch.from_numpy(v).to(torch.int64).view(torch.uint8).reshape(
+        n, 8)[:, :tdt.itemsize].reshape(-1).view(tdt)
+
+
+def _acc_geometry(kind, isz, k, rng):
+    """(rows, offs, lens, strides, counts) of ``k`` element-aligned ops,
+    lengths in bytes."""
+    P = ARENA[1]
+    rows, offs, lens, strides, counts = [], [], [], [], []
+    cursor = [0] * ARENA[0]
+    for j in range(k):
+        n = int(rng.integers(1, 6 if kind == "strided" else 24))
+        if kind == "ordered":                   # overlapping, one row
+            rows.append(1)
+            offs.append(int(rng.integers(0, 16)) * isz)
+            lens.append(n * isz)
+            strides.append(0)
+            counts.append(1)
+            continue
+        r = j % ARENA[0]
+        c = int(rng.integers(2, 5)) if kind == "strided" else 1
+        st = (n + int(rng.integers(0, 3))) * isz if c > 1 else 0
+        span = (c - 1) * st + n * isz
+        off = cursor[r] + int(rng.integers(0, 3)) * isz
+        if kind == "pool_end" and j < ARENA[0]:
+            off = P - span                        # hard against the end
+        cursor[r] = off + span
+        rows.append(r)
+        offs.append(off)
+        lens.append(n * isz)
+        strides.append(st)
+        counts.append(c)
+    return rows, offs, lens, strides, counts
+
+
+def _acc_case(kind, dtype, op, seed):
+    """(arena, desc, flat, seg, fetch, ordered) as the engine stages an
+    accumulate run: dense payloads, the (kb, 7) table."""
+    rng = np.random.default_rng(seed)
+    isz = getattr(torch, dtype).itemsize
+    k = {"padded": 5, "pool_end": 4}.get(kind, int(rng.integers(2, 12)))
+    rows, offs, lens, strides, counts = _acc_geometry(kind, isz, k, rng)
+    desc, seg = tsc.pack_acc_table(rows, offs, lens, op, strides=strides,
+                                   counts=counts)
+    flat = torch.cat([_special(rng, dtype, l * c // isz).view(torch.uint8)
+                      for l, c in zip(lens, counts)])
+    arena = _special(rng, dtype, ARENA[0] * ARENA[1] // isz).view(
+        torch.uint8).reshape(ARENA)
+    return arena, desc, flat, seg, kind == "fetch", kind == "ordered"
+
+
+@pytest.mark.parametrize("kind", ACC_KINDS)
+@pytest.mark.parametrize("dtype", tsc.ACC_DTYPES)
+def test_acc_tables_are_element_aligned_and_in_range(kind, dtype):
+    """The tables the card tests use, checked on the host: every op lies
+    inside the arena and the payload, element-aligned."""
+    for op in tsc.REDUCE_OPS:
+        arena, desc, flat, seg, fetch, ordered = _acc_case(kind, dtype, op,
+                                                           seed=31)
+        isz = getattr(torch, dtype).itemsize
+        live = desc[:, tsc.LEN] > 0
+        d = desc[live].astype(np.int64)
+        assert (d[:, [tsc.OFF, tsc.LEN, tsc.STRIDE, tsc.START]] % isz
+                == 0).all()
+        last = d[:, tsc.OFF] + (d[:, tsc.COUNT] - 1) * d[:, tsc.STRIDE] \
+            + d[:, tsc.LEN]
+        assert (last <= ARENA[1]).all()
+        assert (d[:, tsc.START] + d[:, tsc.LEN] * d[:, tsc.COUNT]
+                <= flat.numel()).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ACC_KINDS)
+@pytest.mark.parametrize("dtype", tsc.ACC_DTYPES)
+def test_cuda_accumulate_matches_plain(cuda_device, kind, dtype):
+    """Bitwise equal to the plain version on the card, NaN, ±0,
+    denormal, overflow and wrap-around cases included."""
+    name = ("get_accumulate" if kind == "fetch" else
+            "accumulate_ordered" if kind == "ordered" else "accumulate")
+    for op in tsc.REDUCE_OPS:
+        arena, desc, flat, seg, fetch, ordered = _acc_case(kind, dtype, op,
+                                                           seed=41)
+        d = torch.from_numpy(desc).to(cuda_device)
+        f = flat.to(cuda_device)
+        k = arena.to(cuda_device)
+        p = k.clone()
+        before = tsc.launch_counts[name]
+        got = tsc.accumulate_cuda(k, d, f, seg=seg, op=op, dtype=dtype,
+                                  fetch=fetch, ordered=ordered)
+        want = tsc.accumulate_ref(p, d, f, seg=seg, op=op, dtype=dtype,
+                                  fetch=fetch, ordered=ordered)
+        torch.cuda.synchronize()
+        assert torch.equal(k, p), f"{kind} {dtype} {op}"
+        if fetch:
+            assert torch.equal(got[1], want[1]), f"{kind} {dtype} {op} old"
+        assert tsc.launch_counts[name] == before + 1
