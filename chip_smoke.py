@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Drive the torch port's one-sided put/get path, its reduction plane
-and its host-plane collectives on one CUDA card.
+"""Drive the torch port's one-sided put/get path, its reduction plane,
+its host-plane collectives, its flash attention and its dense model
+(llama3-8b) on one CUDA card.
 
     python3 chip_smoke.py
 
 Needs one CUDA card (Hopper, sm_90a) and nvcc; exits non-zero without
 them, and prints no result.  It
 
-1. prints the card's name and power limit, builds the segmented-copy
-   and read-modify-write kernels from ``src/repro_torch/kernels/csrc``
-   and prints the build time and ``-Xptxas -v``;
+1. prints the card's name and power limit, builds the kernels of
+   ``src/repro_torch/kernels/csrc`` (segmented copy and read-modify-write;
+   flash attention), one nvcc per source, all at once, and prints the
+   build times and ``-Xptxas -v``;
 2. brings the runtime up through ``repro_torch.core`` at the scale of
    the reference's paper benchmark: 16 units, a 48 MiB per-unit WORLD
    pool and a 48 MiB per-member DART_TEAM_ALL pool (two 768 MiB arenas
@@ -33,7 +35,23 @@ them, and prints no result.  It
    where a blocking op's host time goes (a split of each op, PyTorch's
    per-call costs and a cProfile), and prints the kernels' launch
    counts from step 3 with their times as one JSON line;
-6. prints ``{"ok": true, "device": {...}}`` as its last line.
+6. runs two more counted paths, each with the launch counts set to 0
+   just before it and read just after:
+   - attention: ``flash_attention`` at llama3-8b's head geometry (B=1,
+     S=T=4096, Hq=32, Hkv=8, hd=128), causal, float32 and bfloat16,
+     and S=1024 over T=4096, causal and not; each result held against
+     the plain version and the model's ``gqa_scores_and_mix`` (2e-5
+     float32, 2e-2 bfloat16, TF32 off), the kernel timed warm and cold
+     beside its bound, the plain version and PyTorch's
+     ``scaled_dot_product_attention`` (timed only);
+   - the dense model: llama3-8b at full width and depth with seeded
+     random float32 parameters on the card; in float32 compute, the
+     reference's prefill/decode consistency check on a 512-token
+     prompt; in the config's bfloat16 compute, a timed 512-token
+     prefill and 16 greedy decode steps, and one of each under
+     ``torch.profiler`` (device time by kernel, busy share);
+7. prints the kernels' launch counts and times as one JSON line, then
+   ``{"ok": true, "device": {...}}`` as its last line.
 """
 
 from __future__ import annotations
@@ -66,6 +84,16 @@ REPLACES = {"scatter": "src/repro/kernels/segmented_copy.py:482",
             "accumulate_ordered": "src/repro/kernels/segmented_copy.py:529",
             "get_accumulate": "src/repro/kernels/segmented_copy.py:529"}
 KERNELS = tuple(REPLACES)
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:32"
+#: llama3-8b's attention geometry (src/repro_torch/configs/llama3_8b.py)
+ATTN = dict(b=1, s=4096, hq=32, hkv=8, hd=128, rect_s=1024)
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: H100 SXM peaks: IEEE float32 on the CUDA cores, dense bf16 tensor cores
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+MODEL_ARCH = "llama3-8b"
+PROMPT = 512
+DECODE_STEPS = 16
 
 
 class SmokeFailure(AssertionError):
@@ -1074,6 +1102,227 @@ def host_breakdown(ctx, g, sizes, reps: int = 200) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# attention: flash_attention at llama3-8b's head geometry
+# ----------------------------------------------------------------------------
+
+def attention_cases(*, b: int, s: int, hq: int, hkv: int, hd: int,
+                    rect_s: int):
+    """``(name, dtype, S, T, causal)`` of the attention path."""
+    return [("causal", "float32", s, s, True),
+            ("causal_bf16", "bfloat16", s, s, True),
+            ("rect", "float32", rect_s, s, False),
+            ("rect_causal", "float32", rect_s, s, True)]
+
+
+def attention_inputs(device, seed: int, case, *, b: int, hq: int, hkv: int,
+                     hd: int, **_):
+    """q, k, v of one case, standard normal, made on the device."""
+    import torch
+    _, dt, sq, t, _ = case
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+
+    def mk(*shape):
+        return torch.randn(shape, generator=g, device=device).to(
+            getattr(torch, dt))
+    return mk(b, sq, hq, hd), mk(b, t, hkv, hd), mk(b, t, hkv, hd)
+
+
+def run_attention_path(cases, inputs) -> dict:
+    """The attention path: ``flash_attention`` on every case, through
+    the entry point a caller uses."""
+    from repro_torch.kernels import flash_attention as fa
+    return {c[0]: fa.flash_attention(*inputs[c[0]], causal=c[4])
+            for c in cases}
+
+
+def check_close(got, want, tol: float, what: str) -> float:
+    """``got`` finite and ``|got - want| <= tol + tol*|want|`` everywhere;
+    returns the max abs error."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    bad = int((diff > tol + tol * w.abs()).sum())
+    err = float(diff.max())
+    check(torch_isfinite(g) and bad == 0,
+          f"{what}: {bad} elements outside {tol} (max abs err {err})")
+    return err
+
+
+def torch_isfinite(x) -> bool:
+    import torch
+    return bool(torch.isfinite(x).all())
+
+
+def attention_checks(cases, inputs, outs) -> dict:
+    """Each result against the plain version and against the model's
+    ``gqa_scores_and_mix`` (mask: ``causal_mask(S, T, 0)``, top-left)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
+    errs = {}
+    for name, dt, sq, t, causal in cases:
+        q, k, v = inputs[name]
+        out = outs[name]
+        check(out.shape == q.shape and out.dtype == q.dtype,
+              f"attention {name}: {tuple(out.shape)} {out.dtype}")
+        tol = ATTN_TOL[dt]
+        plain = fa.flash_attention_ref(q, k, v, causal=causal)
+        e_plain = check_close(out, plain, tol, f"attention {name} vs plain")
+        del plain
+        mask = L.causal_mask(sq, t, 0, device=q.device) if causal else None
+        model = L.gqa_scores_and_mix(q, k, v, mask)
+        e_model = check_close(out, model, tol,
+                              f"attention {name} vs gqa_scores_and_mix")
+        del model
+        errs[name] = (e_plain, e_model)
+        print(f"attention check {name} ({dt}, S={sq}, T={t}, causal="
+              f"{causal}): kernel vs plain max abs err {e_plain:.3e}, vs "
+              f"gqa_scores_and_mix {e_model:.3e} (tolerance {tol})")
+    return errs
+
+
+def attention_work(case, *, b: int, hq: int, hkv: int, hd: int, **_):
+    """(FLOP, bytes) the inputs need: 4*hd FLOP per visible (query, key)
+    pair and head; q, k, v read once, o written once."""
+    _, dt, sq, t, causal = case
+    pairs = (sum(min(i + 1, t) for i in range(sq)) if causal else sq * t)
+    elt = 4 if dt == "float32" else 2
+    return (4 * b * hq * hd * pairs,
+            elt * (2 * b * sq * hq * hd + 2 * b * t * hkv * hd))
+
+
+def attention_timing(cases, inputs, shape, reps: int = 10) -> dict:
+    """Warm and cold device ms of the kernel, the plain version and
+    ``scaled_dot_product_attention`` (the library yardstick, never
+    called by the port) on each case's inputs, beside the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 << 20)
+    evict = torch.empty(4 * l2, dtype=torch.uint8, device="cuda")
+    out = {}
+    for case in cases:
+        name, dt, sq, t, causal = case
+        q, k, v = inputs[name]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        flops, nbytes = attention_work(case, **shape)
+        out[name] = {
+            "ms": time_ms(lambda: fa.flash_attention_cuda(
+                q, k, v, causal=causal), reps),
+            "cold_ms": time_ms(lambda: fa.flash_attention_cuda(
+                q, k, v, causal=causal), max(reps // 2, 1),
+                flush=evict.zero_),
+            "plain_ms": time_ms(lambda: fa.flash_attention_ref(
+                q, k, v, causal=causal), 3),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), reps),
+            "bound_ms": max(flops / PEAK_FLOPS[dt],
+                            nbytes / HBM_BYTES_PER_S) * 1e3,
+            "flops": flops, "bytes": nbytes,
+            "bound_by": ("operations" if flops / PEAK_FLOPS[dt]
+                         >= nbytes / HBM_BYTES_PER_S else "bytes")}
+    del evict
+    return out
+
+
+# ----------------------------------------------------------------------------
+# the dense model: llama3-8b
+# ----------------------------------------------------------------------------
+
+def run_model_path(cfg, *, prompt: int, steps: int, seed: int,
+                   device=None) -> dict:
+    """The dense family's entry points at ``cfg``'s width and depth with
+    seeded random parameters: in float32 compute, the reference's
+    prefill/decode consistency check (tests/test_arch_smoke.py:66-95);
+    in the config's own compute dtype, a timed prefill of ``prompt``
+    tokens and ``steps`` greedy decode steps."""
+    import dataclasses
+    import torch
+    from repro_torch.models import api
+    res = {}
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed, device=device)
+    dev = params["embed"]["tok"].device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    res["init_s"] = time.perf_counter() - t0
+    res["params"] = sum(x.numel() for _, x in api.tree_leaves(params))
+    check(res["params"] == api.param_count(cfg),
+          "initialised parameters differ from the schema's count")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    tok = torch.randint(0, cfg.vocab, (1, prompt), generator=g, device=dev)
+    max_seq = prompt + steps + 1
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    logits, _ = api.forward_train(cfg32, params, {"tokens": tok})
+    check(logits.shape == (1, prompt, cfg.vocab) and torch_isfinite(logits),
+          f"forward_train logits {tuple(logits.shape)} not finite")
+    pre, cache = api.forward_prefill(cfg32, params, {"tokens": tok}, max_seq)
+    check(cache["pos"] == prompt, "prefill cache position")
+    res["prefill_err"] = check_close(pre[:, 0], logits[:, -1], 2e-4,
+                                     "prefill vs forward_train logits")
+    nxt = pre[:, 0].argmax(-1)[:, None]
+    dec, _ = api.forward_decode(cfg32, params, nxt, cache)
+    ext, _ = api.forward_train(cfg32, params,
+                               {"tokens": torch.cat([tok, nxt], 1)})
+    res["decode_err"] = check_close(dec[:, 0], ext[:, -1], 2e-3,
+                                    "decode vs forward_train logits")
+    del logits, pre, cache, dec, ext
+
+    def prefill():
+        return api.forward_prefill(cfg, params, {"tokens": tok}, max_seq)
+
+    prefill()                                   # warm-up
+    sync()
+    t0 = time.perf_counter()
+    pre, cache = prefill()
+    sync()
+    res["prefill_s"] = time.perf_counter() - t0
+    check(torch_isfinite(pre), f"{cfg.compute_dtype} prefill logits")
+    nxt = pre[:, 0].argmax(-1)[:, None]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = api.forward_decode(cfg, params, nxt, cache)
+        nxt = logits[:, 0].argmax(-1)[:, None]
+    sync()
+    res["decode_s"] = time.perf_counter() - t0
+    check(torch_isfinite(logits) and cache["pos"] == prompt + steps,
+          f"{cfg.compute_dtype} decode logits or cache position")
+    if dev.type == "cuda":
+        res["prefill_profile"] = device_profile(prefill)
+        res["decode_profile"] = device_profile(
+            lambda: api.forward_decode(cfg, params, nxt, cache))
+    return res
+
+
+def device_profile(fn, top: int = 8):
+    """One call of ``fn`` under ``torch.profiler``: (wall ms, device ms
+    summed over kernels, the ``top`` kernels as (device ms, calls,
+    name)).  Kernels run one at a time on the one stream, so device ms
+    over wall ms is the card's busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0))
+        rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    return wall, sum(r[0] for r in rows), rows[:top]
+
+
 def card_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -1090,6 +1339,7 @@ def main() -> int:
     try:
         import repro_torch.core as dart
         from repro_torch.kernels import _build
+        from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import segmented_copy as sc
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e})",
@@ -1098,10 +1348,12 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}")
     t0 = time.perf_counter()
-    _build.load()
-    print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.build_info.get('seconds', 0.0):.2f} s)")
-    print(_build.build_info.get("log", "").strip())
+    _build.load_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s, one nvcc per source "
+          "in parallel")
+    for name, info in _build.build_infos.items():
+        print(f"build {name}: nvcc {info.get('seconds', 0.0):.2f} s")
+        print(str(info.get("log", "")).strip())
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
@@ -1210,6 +1462,74 @@ def main() -> int:
     for name, calls, us in parts["profile"]:
         print(f"  {us:9.2f} us  {calls:5.1f} calls  {name}")
     dart.dart_exit(ctx)
+    del ctx, gw, gt
+    torch.cuda.empty_cache()
+
+    # the attention path, counted on its own
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cases = attention_cases(**ATTN)
+    inputs = {c[0]: attention_inputs("cuda", 1000 + i, c, **ATTN)
+              for i, c in enumerate(cases)}
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = run_attention_path(cases, inputs)
+    torch.cuda.synchronize()
+    attn_launches = dict(fa.launch_counts)
+    print(f"attention path: {time.perf_counter() - t0:.2f} s, "
+          f"{len(cases)} calls, launches {attn_launches}")
+    check(attn_launches["flash"] == len(cases),
+          "flash attention did not launch its kernel on every call")
+    check(attn_launches["ref_on_cuda"] == 0,
+          "a plain version ran on CUDA tensors")
+    attn_errs = attention_checks(cases, inputs, outs)
+    del outs
+    attn_time = attention_timing(cases, inputs, ATTN)
+    del inputs
+    for (name, dt, sq, t, causal), tm in zip(cases, attn_time.values()):
+        print(f"time flash_attention {name} [{dt} B={ATTN['b']} S={sq} T={t} "
+              f"Hq={ATTN['hq']} Hkv={ATTN['hkv']} hd={ATTN['hd']} causal="
+              f"{causal}]: kernel {tm['ms']:.6f} ms warm, {tm['cold_ms']:.6f}"
+              f" ms cold, plain {tm['plain_ms']:.6f} ms, sdpa "
+              f"{tm['library_ms']:.6f} ms, bound {tm['bound_ms']:.6f} ms "
+              f"({tm['flops']} FLOP at {PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s, "
+              f"{tm['bytes']} B at 3.35 TB/s; {tm['bound_by']}) on {card}")
+    torch.cuda.empty_cache()
+
+    # the dense model's path, counted on its own: its attention is plain
+    # torch, as in the reference, so it launches no kernel of the port
+    from repro_torch.configs import get_config
+    cfg = get_config(MODEL_ARCH)
+    fa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = run_model_path(cfg, prompt=PROMPT, steps=DECODE_STEPS,
+                           seed=20240723)
+    model_launches = dict(fa.launch_counts)
+    print(f"model path {MODEL_ARCH}: {time.perf_counter() - t0:.2f} s, "
+          f"{model['params']} parameters ({cfg.param_dtype}, {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}) initialised in "
+          f"{model['init_s']:.2f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+          f"launches {model_launches}")
+    check(model_launches == {"flash": 0, "ref_on_cuda": 0},
+          "the model's attention went through the flash wrapper")
+    print(f"model consistency (float32 compute, {PROMPT}-token prompt): "
+          f"prefill vs forward_train max abs err {model['prefill_err']:.3e}"
+          f" (tolerance 2e-4), decode vs forward_train "
+          f"{model['decode_err']:.3e} (tolerance 2e-3)")
+    print(f"model timing ({cfg.compute_dtype} compute, B=1): prefill "
+          f"{PROMPT} tokens in {model['prefill_s'] * 1e3:.3f} ms = "
+          f"{PROMPT / model['prefill_s']:.1f} tokens/s; {DECODE_STEPS} greedy"
+          f" decode steps {model['decode_s'] / DECODE_STEPS * 1e3:.3f} "
+          f"ms/token on {card}")
+    for name in ("prefill", "decode"):
+        wall, dev_ms, top = model[f"{name}_profile"]
+        print(f"model {name} under torch.profiler: wall {wall:.3f} ms, "
+              f"kernels {dev_ms:.3f} ms (busy share "
+              f"{dev_ms / wall if wall else 0.0:.3f}) on {card}; top kernels:")
+        for ms, calls, kname in top:
+            print(f"  {ms:9.3f} ms {calls:5d} calls  {kname[:90]}")
 
     kernels = [{"name": f"segmented_{k}", "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[k], "launches": launches[k],
@@ -1218,6 +1538,14 @@ def main() -> int:
                 "bound_ms": timing[k]["bound_ms"], "bound_by": "bytes",
                 "library_ms": timing[k]["library_ms"]}
                for k in KERNELS]
+    tm = attn_time["causal"]
+    kernels.append({"name": "flash_attention", "route": "cuda",
+                    "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+                    "launches": attn_launches["flash"],
+                    "max_abs_err": attn_errs["causal"][0], "ms": tm["ms"],
+                    "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+                    "bound_by": tm["bound_by"],
+                    "library_ms": tm["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
 """Build and load the hand-written CUDA kernels.
 
-``csrc/segmented_copy.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-a shared library with a plain C interface and loaded with ``ctypes``
-(no PyTorch headers: a build takes seconds, not minutes).  The build
-runs at first use, into ``_build/`` beside this file (listed in
-``.gitignore``); the library's name carries a hash of the source, so an
-edited source never loads a stale build.  The sources in the package
-are the only inputs.
+Each source in ``csrc/`` (:data:`SOURCES`) is compiled by ``nvcc`` for
+``sm_90a`` into a shared library of its own with a plain C interface
+and loaded with ``ctypes`` (no PyTorch headers: a build takes seconds,
+not minutes).  A build runs at first use, into ``_build/`` beside this
+file (listed in ``.gitignore``); each library's name carries a hash of
+its own source, so an edited source never loads a stale build and
+editing one source rebuilds only its library.  :func:`load_all` starts
+one ``nvcc`` per missing library, all at once.  The sources in the
+package are the only inputs.
 """
 
 from __future__ import annotations
@@ -19,32 +21,56 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterable, Tuple
 
 _HERE = pathlib.Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "segmented_copy.cu"
+#: library name -> its CUDA source
+SOURCES: Dict[str, pathlib.Path] = {
+    "segmented_copy": _HERE / "csrc" / "segmented_copy.cu",
+    "flash_attention": _HERE / "csrc" / "flash_attention.cu",
+}
 BUILD_DIR = _HERE / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _LOCK = threading.Lock()
-_LIB: Optional[ctypes.CDLL] = None
-#: ``{"seconds": build wall time (0.0 when a cached library was loaded),
-#: "log": nvcc's output including -Xptxas -v, "path": library}``
-build_info: Dict[str, object] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+#: per library: ``{"seconds": nvcc wall time (0.0 when a cached library
+#: was loaded), "log": nvcc's output including -Xptxas -v, "path": the
+#: library}``
+build_infos: Dict[str, Dict[str, object]] = {name: {} for name in SOURCES}
+#: the segmented-copy library's entry of :data:`build_infos`
+build_info = build_infos["segmented_copy"]
 
-_vp, _ll, _int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_vp, _ll, _int, _f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_float)
 _SIGNATURES = {
-    # arena, n_rows, pool_bytes, desc, kb, flat, flat_len, seg, ordered,
-    # stream
-    "dart_segmented_scatter": [_vp, _ll, _ll, _vp, _int, _vp, _ll, _int,
-                               _int, _vp],
-    # arena, n_rows, pool_bytes, desc, kb, out, seg, stream
-    "dart_segmented_gather": [_vp, _ll, _ll, _vp, _int, _vp, _int, _vp],
-    # arena, n_rows, pool_bytes, desc, kb, flat, flat_len, seg, op, dtype,
-    # ordered, out (or NULL), stream
-    "dart_segmented_accumulate": [_vp, _ll, _ll, _vp, _int, _vp, _ll, _int,
-                                  _int, _int, _int, _vp, _vp],
+    "segmented_copy": {
+        # arena, n_rows, pool_bytes, desc, kb, flat, flat_len, seg,
+        # ordered, stream
+        "dart_segmented_scatter": [_vp, _ll, _ll, _vp, _int, _vp, _ll, _int,
+                                   _int, _vp],
+        # arena, n_rows, pool_bytes, desc, kb, out, seg, stream
+        "dart_segmented_gather": [_vp, _ll, _ll, _vp, _int, _vp, _int, _vp],
+        # arena, n_rows, pool_bytes, desc, kb, flat, flat_len, seg, op,
+        # dtype, ordered, out (or NULL), stream
+        "dart_segmented_accumulate": [_vp, _ll, _ll, _vp, _int, _vp, _ll,
+                                      _int, _int, _int, _int, _vp, _vp],
+    },
+    "flash_attention": {
+        # q, k, v, o, B, S, T, Hq, Hkv, hd, q strides (b, s, h),
+        # k strides, v strides, o strides, dtype, causal, scale, stream
+        "dart_flash_attention": [_vp, _vp, _vp, _vp, _int, _ll, _ll, _int,
+                                 _int, _int] + [_ll] * 12
+                                + [_int, _int, _f, _vp],
+    },
 }
+
+
+def library_path(name: str) -> pathlib.Path:
+    """Where library ``name`` is built: ``_build/lib<name>_<hash>.so``,
+    the hash being the first 16 hex digits of its source's SHA-256."""
+    digest = hashlib.sha256(SOURCES[name].read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
 def _nvcc() -> str:
@@ -56,49 +82,85 @@ def _nvcc() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA "
-                       "segmented-copy kernels cannot be built")
+                       "kernels cannot be built")
 
 
-def _compile(out: pathlib.Path) -> None:
+def _start(name: str, out: pathlib.Path) -> Tuple[subprocess.Popen, list,
+                                                 pathlib.Path, float]:
+    """Start nvcc on ``name``'s source, building into a temporary file;
+    its output goes to a log file beside it (a pipe left unread while
+    another build is awaited could fill and stall it)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    build_info.update(seconds=seconds, log=proc.stdout + proc.stderr)
+           str(SOURCES[name])]
+    with open(tmp.with_suffix(".log"), "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+    return proc, cmd, tmp, time.perf_counter()
 
 
-def load() -> ctypes.CDLL:
-    """The kernels' library, built on first use."""
-    global _LIB
+def _wait_all(started: Dict[str, tuple],
+              paths: Dict[str, pathlib.Path]) -> None:
+    """Wait for every build started by :func:`_start`, timing each to
+    its own exit; raise the first failure once all have ended."""
+    pending, failure = dict(started), None
+    while pending:
+        for name, (proc, cmd, tmp, t0) in list(pending.items()):
+            if proc.poll() is None:
+                continue
+            seconds = time.perf_counter() - t0
+            del pending[name]
+            log_path = tmp.with_suffix(".log")
+            log = log_path.read_text()
+            log_path.unlink()
+            if proc.returncode != 0:
+                failure = failure or RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{log}")
+                continue
+            os.replace(tmp, paths[name])
+            build_infos[name].update(seconds=seconds, log=log)
+        time.sleep(0.02)
+    if failure is not None:
+        raise failure
+
+
+def _open(name: str, path: pathlib.Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn_name, args in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.dart_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.dart_cuda_error_string.restype = ctypes.c_char_p
+    build_infos[name]["path"] = str(path)
+    return lib
+
+
+def load_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, ctypes.CDLL]:
+    """Load the named libraries, building every missing one first: one
+    ``nvcc`` per source, all started together."""
+    names = list(names)
     with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-        path = BUILD_DIR / f"libsegmented_copy_{digest}.so"
-        if not path.exists():
-            _compile(path)
-        else:
-            build_info.update(seconds=0.0, log="(cached build)")
-        build_info["path"] = str(path)
-        lib = ctypes.CDLL(str(path))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        lib.dart_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.dart_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-        return lib
+        todo = [n for n in names if n not in _LIBS]
+        paths = {n: library_path(n) for n in todo}
+        started = {n: _start(n, paths[n]) for n in todo
+                   if not paths[n].exists()}
+        _wait_all(started, paths)
+        for n in todo:
+            if n not in started:
+                build_infos[n].update(seconds=0.0, log="(cached build)")
+            _LIBS[n] = _open(n, paths[n])
+        return {n: _LIBS[n] for n in names}
 
 
-def error_string(code: int) -> str:
-    lib = load()
+def load(name: str = "segmented_copy") -> ctypes.CDLL:
+    """Library ``name``, built on first use."""
+    lib = _LIBS.get(name)
+    return lib if lib is not None else load_all([name])[name]
+
+
+def error_string(code: int, name: str = "segmented_copy") -> str:
+    lib = load(name)
     return f"{code} ({lib.dart_cuda_error_string(code).decode()})"

@@ -169,7 +169,9 @@ def test_heap_state_numpy_roundtrip():
 
 def test_import_pulls_in_neither_jax_nor_reference():
     code = ("import sys, repro_torch.core, repro_torch.kernels."
-            "segmented_copy, repro_torch.kernels._build; "
+            "segmented_copy, repro_torch.kernels._build, "
+            "repro_torch.kernels.flash_attention, repro_torch.models.api, "
+            "repro_torch.configs; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)")
